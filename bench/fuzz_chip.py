@@ -1,9 +1,11 @@
-"""Randomized host-vs-TPU A/B fuzz on the real chip.
+"""Randomized host-vs-device A/B fuzz on the GPU.
 
-The CI fuzz suites run on the CPU backend (conftest pins JAX_PLATFORMS);
-this script drives the CLI end-to-end on the actual TPU across random
-genome sets and configurations and byte-compares every artefact and
-output against the host oracle. Run: `python bench/fuzz_chip.py [iters]`.
+The CI fuzz suites run on the CPU backend (conftest defaults
+JAX_PLATFORMS to cpu); this script drives the CLI end-to-end on the card
+across random genome sets and configurations and byte-compares every
+artefact and output against the host oracle. Each CLI call is its own
+process, one at a time, so only one process holds the card.
+Run: `python bench/fuzz_chip.py [iters]`.
 """
 
 import os
@@ -73,12 +75,12 @@ def one_iter(it: int) -> None:
                        "-s", str(ssize)]
         if pyr.random() < 0.3:
             sketch_args.append("--single-strand")
-        for be in ("host", "tpu"):
+        for be in ("host", "device"):
             run_cli(sketch_args[:4] + [f"db_{be}"] + sketch_args[5:], be, td)
         skd_h = (tdp / "db_host.skd").read_bytes()
-        skd_t = (tdp / "db_tpu.skd").read_bytes()
+        skd_t = (tdp / "db_device.skd").read_bytes()
         assert skd_h == skd_t, f"iter {it}: .skd mismatch ({sketch_args})"
-        assert (tdp / "db_host.skm").read_bytes() == (tdp / "db_tpu.skm").read_bytes()
+        assert (tdp / "db_host.skm").read_bytes() == (tdp / "db_device.skm").read_bytes()
 
         first_k = kmers.split(",")[0]
         dist_modes = [["-k", first_k], ["-k", first_k, "--ani"]]
@@ -90,7 +92,7 @@ def one_iter(it: int) -> None:
         dist_modes.append(["-k", first_k, "--knn", knn])
         for m in dist_modes:
             outs = {}
-            for be in ("host", "tpu"):
+            for be in ("host", "device"):
                 outs[be] = run_cli(["dist", "db_host", *m], be, td)
             if m == []:  # f32 core/acc engine: tolerance, pair set identical
                 def parse(b):
@@ -99,37 +101,37 @@ def one_iter(it: int) -> None:
                         [[float(x) for x in r[2:]] for r in rows]
                     )
                 ph, vh = parse(outs["host"])
-                pt, vt = parse(outs["tpu"])
+                pt, vt = parse(outs["device"])
                 assert ph == pt, f"iter {it}: core/acc pair set"
                 assert np.abs(vh - vt).max() < 5e-4, f"iter {it}: core/acc tol"
             else:
-                assert outs["host"] == outs["tpu"], f"iter {it}: dist {m}"
+                assert outs["host"] == outs["device"], f"iter {it}: dist {m}"
 
         # inverted build/query A/B on a fresh small index
         inv_args = ["inverted", "build", "-f", "rfile.txt", "-s",
                     str(pyr.choice([50, 100])), "-k", first_k, "--write-skq"]
-        for be in ("host", "tpu"):
+        for be in ("host", "device"):
             run_cli(inv_args[:4] + ["-o", f"inv_{be}"] + inv_args[4:], be, td)
-        assert (tdp / "inv_host.ski").read_bytes() == (tdp / "inv_tpu.ski").read_bytes(), \
+        assert (tdp / "inv_host.ski").read_bytes() == (tdp / "inv_device.ski").read_bytes(), \
             f"iter {it}: .ski mismatch"
-        assert (tdp / "inv_host.skq").read_bytes() == (tdp / "inv_tpu.skq").read_bytes(), \
+        assert (tdp / "inv_host.skq").read_bytes() == (tdp / "inv_device.skq").read_bytes(), \
             f"iter {it}: .skq mismatch"
         qt = pyr.choice(["match-count", "any-bins", "all-bins"])
         q = {}
-        for be in ("host", "tpu"):
+        for be in ("host", "device"):
             q[be] = run_cli(["inverted", "query", "inv_host.ski", "-f",
                              "rfile.txt", "--query-type", qt], be, td)
-        assert q["host"] == q["tpu"], f"iter {it}: query {qt}"
+        assert q["host"] == q["device"], f"iter {it}: query {qt}"
 
         # preclustered kNN over the single-k db (fused prefilter path)
         if "," not in kmers:
             pc = {}
-            for be in ("host", "tpu"):
+            for be in ("host", "device"):
                 pc[be] = run_cli(
                     ["inverted", "precluster", "inv_host.ski", "--skd",
                      "db_host", "--knn", "2"], be, td)
             assert pc["host"], f"iter {it}: precluster produced no output"
-            assert pc["host"] == pc["tpu"], f"iter {it}: precluster"
+            assert pc["host"] == pc["device"], f"iter {it}: precluster"
     print(f"iter {it} OK (n={n_samples} k={kmers} s={ssize})", flush=True)
 
 
@@ -164,12 +166,12 @@ def one_iter_fastq(it: int) -> None:
         (tdp / "rfile.txt").write_text("\n".join(lines) + "\n")
         kmers = pyr.choice(["17", "17,21"])
         mc = pyr.choice(["1", "2", "5"])
-        for be in ("host", "tpu"):
+        for be in ("host", "device"):
             run_cli(["sketch", "-f", "rfile.txt", "-o", f"db_{be}", "-k",
                      kmers, "-s", "100", "--min-count", mc], be, td)
-        assert (tdp / "db_host.skd").read_bytes() == (tdp / "db_tpu.skd").read_bytes(), \
+        assert (tdp / "db_host.skd").read_bytes() == (tdp / "db_device.skd").read_bytes(), \
             f"fastq iter {it}: .skd mismatch (k={kmers} mc={mc})"
-        assert (tdp / "db_host.skm").read_bytes() == (tdp / "db_tpu.skm").read_bytes()
+        assert (tdp / "db_host.skm").read_bytes() == (tdp / "db_device.skm").read_bytes()
     print(f"fastq iter {it} OK (k={kmers} min_count={mc})", flush=True)
 
 
@@ -192,11 +194,11 @@ def one_iter_aa(it: int) -> None:
         (tdp / "rfile.txt").write_text("\n".join(lines) + "\n")
         level = pyr.choice(["1", "2", "3"])
         kmers = pyr.choice(["6", "6,9,12"])
-        for be in ("host", "tpu"):
+        for be in ("host", "device"):
             run_cli(["sketch", "-f", "rfile.txt", "-o", f"db_{be}", "-k",
                      kmers, "-s", "100", "--seq-type", "aa", "--level",
                      f"level{level}"], be, td)
-        assert (tdp / "db_host.skd").read_bytes() == (tdp / "db_tpu.skd").read_bytes(), \
+        assert (tdp / "db_host.skd").read_bytes() == (tdp / "db_device.skd").read_bytes(), \
             f"aa iter {it}: .skd mismatch (k={kmers} level={level})"
     print(f"aa iter {it} OK (k={kmers} level={level})", flush=True)
 

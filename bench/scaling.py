@@ -8,14 +8,14 @@ computes its pair-balanced triangle_row_slice and writes a .partN file),
 times the slowest rank, and reports speedup / parallel efficiency vs the
 single-process run.
 
-On this rig every rank shares one CPU core, so wall-clock efficiency here
-only validates the harness and the per-rank work split (expect ~1/N
-"speedup"); the artifact to read is the per-rank pair counts and rates,
-which are what scale on real hardware. On a real N-host TPU deployment the
-ranks are independent processes on separate hosts with no inter-host
-communication on this path (shard/distributed.py:triangle_row_slice), so
-the only efficiency losses are the pair-split imbalance (<=1 row) and the
-per-rank fixed startup — both measured here.
+On one host the N ranks start at once, and each would open a GPU: rank r
+gets CUDA_VISIBLE_DEVICES=r (the r-th visible card), and N larger than the
+number of visible cards is refused. With JAX_PLATFORMS=cpu or
+--backend host the ranks share the CPU instead, which only validates the
+harness and the per-rank work split. Across hosts the ranks are
+independent processes with no inter-host communication on this path
+(shard/distributed.py:triangle_row_slice), so the only efficiency losses
+are the pair-split imbalance (<=1 row) and the per-rank fixed startup.
 
 Usage:
   python bench/scaling.py --samples 2000 --mode knn --procs 1,2,4
@@ -74,6 +74,21 @@ def build_db(tmp: Path, n: int, sketch_size: int, kmers: list[int]) -> str:
     return prefix
 
 
+def visible_cards() -> list[str]:
+    """IDs of the GPUs this process may hand to ranks, without opening
+    any of them (the parent stays off JAX)."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [d.strip() for d in env.split(",") if d.strip()]
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, check=True).stdout
+    except (FileNotFoundError, subprocess.CalledProcessError):
+        return []
+    return [str(i) for i, line in enumerate(out.splitlines())
+            if line.startswith("GPU ")]
+
+
 def run_ranks(prefix: str, tmp: Path, mode: str, kmers: list[int],
               knn: int, n_procs: int, backend: str) -> tuple[float, float]:
     """Launch n_procs CLI ranks; return (slowest total wall, slowest
@@ -87,6 +102,13 @@ def run_ranks(prefix: str, tmp: Path, mode: str, kmers: list[int],
         args += ["--knn", str(knn)]
     if mode in ("dense", "knn") and len(kmers) == 1:
         args += ["-k", str(kmers[0])]
+    on_cards = backend != "host" and os.environ.get("JAX_PLATFORMS") != "cpu"
+    cards = visible_cards() if on_cards else []
+    if on_cards and n_procs > len(cards):
+        raise SystemExit(
+            f"{n_procs} ranks need {n_procs} GPUs (one process per card); "
+            f"{len(cards)} visible"
+        )
     procs = []
     t0 = time.time()
     for r in range(n_procs):
@@ -97,6 +119,8 @@ def run_ranks(prefix: str, tmp: Path, mode: str, kmers: list[int],
             SKETCHTPU_COMPUTE_WINDOW_FILE=str(wfile),
         )
         env["PYTHONPATH"] = f"{REPO}{os.pathsep}" + env.get("PYTHONPATH", "")
+        if on_cards:
+            env["CUDA_VISIBLE_DEVICES"] = cards[r]
         cmd = [sys.executable, "-m", "sketchtpu.cli", *args]
         if n_procs > 1:
             cmd += ["--n-processes", str(n_procs), "--process-id", str(r)]
@@ -122,8 +146,8 @@ def format_pool_bench(workers_list: list[int], n_chunks: int = 64,
     """OutputPipeline format-stage scaling: measure lines/s into a null
     sink with 1..N pool workers formatting synthetic distance chunks (the
     native GIL-releasing line assembly). On a single-core rig this prints
-    ~flat rates; on a multi-core host it is the measurement backing the
-    multi-worker output claim (VERDICT r2 weakness #4)."""
+    ~flat rates; on a multi-core host it measures how the output stage
+    scales with workers."""
     sys.path.insert(0, str(REPO))
     import io
 
@@ -184,7 +208,7 @@ def main() -> None:
     ap.add_argument("--knn", type=int, default=50)
     ap.add_argument("--procs", default="1,2,4")
     ap.add_argument("--backend", default=os.environ.get(
-        "SKETCHTPU_BACKEND", "tpu"))
+        "SKETCHTPU_BACKEND", "device"))
     ap.add_argument("--format-pool", default="1,2,4,8",
                     help="worker counts for the format-pool microbench; "
                          "empty string skips it")
@@ -228,10 +252,7 @@ def main() -> None:
             print(f"  {np_:>5}  {t:7.2f}  {tc:10.2f}  {s:7.2f}  "
                   f"{e:9.1%}  {ec:11.1%}")
         print(
-            "\nNote: ranks share this rig's single core; on real N-host "
-            "hardware each rank runs alone, so efficiency = startup + "
-            "split-imbalance only (both visible above as wall-time spread). "
-            "eff(compute) removes the per-rank interpreter+jax import."
+            "\neff(compute) removes the per-rank interpreter+jax import."
         )
 
     if a.format_pool:

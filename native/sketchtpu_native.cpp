@@ -1,7 +1,7 @@
 // Native helpers for sketchtpu: CRC32C, Snappy raw block codec, and the
 // order-dependent FASTQ k-mer count filter.
 //
-// These are the host-side runtime pieces that sit around the TPU compute
+// These are the host-side runtime pieces that sit around the device compute
 // path: framed-Snappy container IO (.skm/.ski files are snappy-framed CBOR /
 // MessagePack, see /root/reference/src/sketch/multisketch.rs:80-103 and
 // src/inverted.rs:194-225) and the sequential read-filtering loop whose

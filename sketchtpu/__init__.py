@@ -1,6 +1,6 @@
-"""sketchtpu — TPU-native genome sketching and distance estimation.
+"""sketchtpu — genome sketching and distance estimation on the GPU.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
+A from-scratch JAX reimplementation of the capabilities of
 bacpop/sketchlib.rust (binned bottom-MinHash sketching with ntHash/aaHash,
 Jaccard/ANI/core-accessory distances, inverted-index preclustering), with
 bit-compatible `.skm`/`.skd`/`.ski`/`.skq` files. The CLI
@@ -18,8 +18,9 @@ is the library surface, mapping to the reference's public Rust API
 
 Distance functions take a `MultiSketch` with loaded bins and a `DistType`
 from `set_k(ms, kmer, ani)` (kmer=None selects multi-k core/accessory).
-Heavy paths automatically use the TPU engines when a device is available;
-set SKETCHTPU_BACKEND=host|tpu to force a backend.
+Heavy paths automatically use the device engines when JAX has a GPU and
+the run is large enough; set SKETCHTPU_BACKEND=host|device to force a
+backend.
 
 Example::
 

@@ -1,5 +1,5 @@
 """Command-line interface, mirroring the reference's subcommands and flags
-(/root/reference/src/cli.rs) on top of the TPU-native runtime.
+(reference src/cli.rs) on top of the JAX device runtime.
 
 Subcommands: sketch, dist, inverted {build,query,precluster,serve},
 merge, append, delete, info.
@@ -53,7 +53,7 @@ def _add_kmers(p):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="sketchtpu",
-        description="TPU-native genome and amino-acid sketching and distances",
+        description="Genome and amino-acid sketching and distances on the GPU",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -278,7 +278,7 @@ def build_parser() -> argparse.ArgumentParser:
     # --- warmup (extension: the reference has no compile step) ---
     p = sub.add_parser(
         "warmup",
-        help="Pre-compile the TPU kernel set for a configuration so later "
+        help="Pre-compile the device kernel set for a configuration so later "
         "runs hit the persistent compile cache (drives the real CLI on "
         "synthetic inputs; see sketchtpu/warmup.py)",
     )
@@ -374,8 +374,11 @@ def _level_num(level_str: str) -> int:
 
 
 def main(argv=None) -> int:
+    from .runtime import enable_compilation_cache
+
     args = build_parser().parse_args(argv)
     _setup_logging(args)
+    enable_compilation_cache()
     start = time.time()
     print_success = True
 

@@ -1,6 +1,6 @@
 """Distance drivers: dense all-vs-all, sparse kNN, self and cross modes.
 
-Host (NumPy) execution with exact reference numerics; the TPU backend
+Host (NumPy) execution with exact reference numerics; the device backend
 (jaccard_jax.py) plugs in as a samebits engine via the `engine` argument and
 is used automatically for large workloads by the CLI.
 

@@ -1,9 +1,9 @@
 """Fully on-device multi-k core/accessory distance tiles.
 
 For large all-vs-all runs the f64 host pipeline would dominate, so this
-computes the whole per-pair chain on TPU in f32: per k-mer length a
-samebits tile, the Jaccard bias correction, ln, the reference's
-early-break inclusion rule (a k participates only while ln(J) stays above
+computes the whole per-pair chain on the device in f32: per k-mer length
+a samebits tile (jaccard_jax._samebits_tile, the platform's tile), the
+Jaccard bias correction, ln, the reference's early-break inclusion rule (a k participates only while ln(J) stays above
 the tolerance, jaccard.rs:77-99), the closed-form linear regression and
 the (1 - e^beta, 1 - e^alpha) transform (jaccard.rs:105-142).
 
@@ -117,25 +117,17 @@ def coreacc_tile(
 
 
 class DeviceCoreAccEngine:
-    """Tiled on-device core/accessory distances for large runs.
+    """Tiled on-device core/accessory distances for large runs: per-k
+    samebits tiles plus the f32 regression chain of coreacc_tile, which
+    XLA fuses."""
 
-    Two device kernels: the fused multi-k Pallas tile (coreacc_pallas.py,
-    default on TPU — ~1.5x the XLA path, no HBM intermediates) and the XLA
-    fusion path above (default elsewhere). Override with
-    SKETCHTPU_COREACC_KERNEL=pallas|xla.
-    """
-
-    def __init__(self, ms, tile: int = 4096, ti: int = 128, tj: int = 512,
+    def __init__(self, ms, tile: int = 4096,
                  completeness_vec=None, completeness_cutoff: float = 0.64):
-        import os
-
         from ..runtime import enable_compilation_cache
 
         enable_compilation_cache()
         self.ms = ms
         self.tile = tile
-        self.ti = ti
-        self.tj = tj
         self.s64 = ms.sketchsize64
         self.kmers = tuple(ms.kmer_lengths)
         nk = len(self.kmers)
@@ -149,38 +141,10 @@ class DeviceCoreAccEngine:
             self._comp = jax.device_put(
                 np.asarray(completeness_vec, dtype=np.float32)
             )
-        kern = os.environ.get("SKETCHTPU_COREACC_KERNEL", "auto")
-        self._use_pallas = kern == "pallas" or (
-            kern != "xla" and jax.default_backend() not in ("cpu",)
-        )
-        if self._use_pallas:
-            from .coreacc_pallas import chunk_major
-
-            a_cm = chunk_major(jax.device_put(stack), self.s64)
-            self._a_cm = a_cm
-            self._bt = jnp.transpose(a_cm)
-            pb = (-n) % self.tj
-            self._bt_pad = (
-                jnp.pad(self._bt, ((0, 0), (0, pb))) if pb else self._bt
-            )
-            self._bt_pad.block_until_ready()
-            self._stack = None
-            if self._comp is not None:
-                # column completeness padded like _bt_pad (pad value 1.0
-                # keeps the correction factor finite; padded cols are
-                # cropped before anything reads them)
-                self._comp_pad = (
-                    jnp.pad(self._comp, (0, pb), constant_values=1.0)
-                    if pb
-                    else self._comp
-                )
-        else:
-            self._stack = jax.device_put(stack)
+        self._stack = jax.device_put(stack)
         self._n = n
 
     def tile_dists(self, rows: slice, cols: slice) -> np.ndarray:
-        if self._use_pallas:
-            return self._pallas_tile(rows, cols)
         a = self._stack[:, rows, :]
         b = self._stack[:, cols, :]
         out = coreacc_tile(
@@ -191,56 +155,9 @@ class DeviceCoreAccEngine:
         )
         return np.asarray(out)
 
-    def _pallas_tile(self, rows: slice, cols: slice) -> np.ndarray:
-        from .coreacc_pallas import coreacc_pallas
-
-        a = self._a_cm[rows]
-        full_cols = cols == slice(0, self._n) or cols == slice(None)
-        bt = self._bt_pad if full_cols else self._bt[:, cols]
-        na = a.shape[0]
-        nb = self._n if full_cols else bt.shape[1]
-        pa = (-na) % self.ti
-        pb = (-int(bt.shape[1])) % self.tj
-        if pa:
-            a = jnp.pad(a, ((0, pa), (0, 0)))
-        if pb:
-            bt = jnp.pad(bt, ((0, 0), (0, pb)))
-        c1 = c2 = None
-        if self._comp is not None:
-            c1 = self._comp[rows]
-            if pa:
-                c1 = jnp.pad(c1, (0, pa), constant_values=1.0)
-            c2 = self._comp_pad if full_cols else self._comp[cols]
-            if not full_cols and pb:
-                c2 = jnp.pad(c2, (0, pb), constant_values=1.0)
-        out = coreacc_pallas(
-            a, bt, self.s64, self.kmers, self.ms.sketch_size,
-            ti=self.ti, tj=self.tj, c1=c1, c2=c2, cutoff=self._cutoff,
-        )
-        return np.asarray(out[:na, :nb])
-
     def _tile_dists_async(self, r0: int, r1: int, n: int):
         """Dispatch one (row-block x all-columns) tile; returns the device
-        array (cropped lazily) without forcing a transfer."""
-        if self._use_pallas:
-            from .coreacc_pallas import coreacc_pallas
-
-            a = self._a_cm[r0:r1]
-            pa = (-(r1 - r0)) % self.ti
-            if pa:
-                a = jnp.pad(a, ((0, pa), (0, 0)))
-            c1 = c2 = None
-            if self._comp is not None:
-                c1 = self._comp[r0:r1]
-                if pa:
-                    c1 = jnp.pad(c1, (0, pa), constant_values=1.0)
-                c2 = self._comp_pad
-            out = coreacc_pallas(
-                a, self._bt_pad, self.s64, self.kmers, self.ms.sketch_size,
-                ti=self.ti, tj=self.tj, c1=c1, c2=c2, cutoff=self._cutoff,
-                tri=True, row0=np.int32(r0),
-            )
-            return out[: r1 - r0, :n]
+        array without forcing a transfer."""
         a = self._stack[:, r0:r1, :]
         return coreacc_tile(
             a, self._stack, self.s64, self.kmers, self.ms.sketch_size,
@@ -263,7 +180,7 @@ class DeviceCoreAccEngine:
         """Ref-major rectangular core/acc output (cross_dists_all
         semantics); ref row blocks stream against the device-resident
         query stack. Completeness applies only when both sides have
-        values (jaccard.rs:36-42), on either tile kernel."""
+        values (jaccard.rs:36-42)."""
         from .._native import get_lib
         from .output import _name_table, emit_coreacc_cross_block
 
@@ -276,25 +193,7 @@ class DeviceCoreAccEngine:
             np.uint32
         )
         comp_on = rcomp is not None and qcomp is not None
-        if self._use_pallas:
-            from .coreacc_pallas import coreacc_pallas, chunk_major
-
-            qt = jnp.transpose(
-                chunk_major(jax.device_put(q_stack), self.s64)
-            )
-            pb = (-nq) % self.tj
-            if pb:
-                qt = jnp.pad(qt, ((0, 0), (0, pb)))
-            qt.block_until_ready()
-            qc_pad = None
-            if comp_on:
-                qc_pad = jnp.pad(
-                    jnp.asarray(np.asarray(qcomp, dtype=np.float32)),
-                    (0, pb),
-                    constant_values=1.0,
-                )
-        else:
-            q_dev = jax.device_put(q_stack)
+        q_dev = jax.device_put(q_stack)
         rc_v = (
             jnp.asarray(np.asarray(rcomp, dtype=np.float32))
             if comp_on
@@ -315,31 +214,13 @@ class DeviceCoreAccEngine:
 
         def dispatch(r0: int):
             r1 = min(r0 + self.tile, hi)
-            if self._use_pallas:
-                from .coreacc_pallas import coreacc_pallas
-
-                a = self._a_cm[r0:r1]
-                pa = (-(r1 - r0)) % self.ti
-                if pa:
-                    a = jnp.pad(a, ((0, pa), (0, 0)))
-                c1 = None
-                if comp_on:
-                    c1 = rc_v[r0:r1]
-                    if pa:
-                        c1 = jnp.pad(c1, (0, pa), constant_values=1.0)
-                blk = coreacc_pallas(
-                    a, qt, self.s64, self.kmers, self.ms.sketch_size,
-                    ti=self.ti, tj=self.tj,
-                    c1=c1, c2=qc_pad if comp_on else None, cutoff=cutoff,
-                )[: r1 - r0, :nq]
-            else:
-                blk = coreacc_tile(
-                    self._stack[:, r0:r1, :], q_dev, self.s64, self.kmers,
-                    self.ms.sketch_size,
-                    c1=rc_v[r0:r1] if comp_on else None,
-                    c2=qc_v,
-                    cutoff=cutoff,
-                )
+            blk = coreacc_tile(
+                self._stack[:, r0:r1, :], q_dev, self.s64, self.kmers,
+                self.ms.sketch_size,
+                c1=rc_v[r0:r1] if comp_on else None,
+                c2=qc_v,
+                cutoff=cutoff,
+            )
             pending.append((r0, r1, blk))
 
         dispatch(starts[0])

@@ -1,18 +1,18 @@
-"""Device (JAX/XLA/TPU) samebits engine: the hot kernel of all distance
-modes.
+"""Device samebits engine: the hot kernel of all distance modes.
 
 samebits(i, j) counts sketch bins whose low-BBITS sign bits agree — an
 XNOR + AND-reduction over 14 bit-planes followed by popcount
-(/root/reference/src/distances/jaccard.rs:15-25). On TPU this runs on the
-VPU over uint32 lanes: u64 plane words are reinterpreted as pairs of u32
-(bit order is irrelevant to popcount), the per-plane AND chain uses the
-precomputed complement of the reference operand (~a ^ b == ~(a ^ b)), and
-`jax.lax.population_count` reduces each surviving mask word.
+(reference src/distances/jaccard.rs:15-25). u64 plane words are
+reinterpreted as pairs of u32 (bit order is irrelevant to popcount), the
+per-plane AND chain uses the complement of the reference operand
+(~a ^ b == ~(a ^ b)), and `jax.lax.population_count` reduces each
+surviving mask word.
 
-The engine tiles query columns so the (rows x cols x words) intermediate
-stays in a fusion-friendly size, and is used by dist/api.py via the
-`engine` hook — the scalar f64 distance pipeline on top is unchanged, so
-results are identical to the host oracle.
+`_samebits_tile` is the one tile every engine calls; runtime.samebits_kernel
+picks its implementation per platform: the Triton kernel
+(samebits_triton.py) on the GPU, XLA's fusion of the plain version
+(`_samebits_xla`) on the CPU. The engines feed the unchanged scalar f64
+distance pipeline, so results are identical to the host oracle.
 """
 
 from __future__ import annotations
@@ -25,12 +25,22 @@ import jax
 import jax.numpy as jnp
 
 from ..constants import BBITS
+from ..runtime import samebits_kernel
+from .samebits_triton import samebits_tile_triton, samebits_triton, word_major
 
 _U32 = jnp.uint32
 
 
-@functools.partial(jax.jit, static_argnames=("s64",))
 def _samebits_tile(a: jnp.ndarray, b: jnp.ndarray, s64: int) -> jnp.ndarray:
+    """a: (na, W2) u32, b: (nb, W2) u32 -> (na, nb) int32 samebits, on the
+    platform's tile (runtime.samebits_kernel)."""
+    if samebits_kernel() == "triton":
+        return samebits_tile_triton(a, b, s64)
+    return _samebits_xla(a, b, s64)
+
+
+@functools.partial(jax.jit, static_argnames=("s64",))
+def _samebits_xla(a: jnp.ndarray, b: jnp.ndarray, s64: int) -> jnp.ndarray:
     """a: (na, W2) u32, b: (nb, W2) u32 with W2 = BBITS * s64 * 2, laid out
     [chunk][plane][lo,hi]. Returns (na, nb) int32 samebits."""
     na = a.shape[0]
@@ -124,55 +134,16 @@ def _samebits_strip(
     return tiles.transpose(1, 0, 2).reshape(a.shape[0], n)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("s64", "tc", "tri", "interpret")
-)
-def _samebits_strip_pallas(
-    a_cm: jnp.ndarray,  # (blk, SW) u32 chunk-group-major rows (blk % 512 == 0)
-    mt_cm: jnp.ndarray,  # (SW, n) u32 chunk-group-major transposed columns
-    s64: int,
-    tc: int,
-    i0: jnp.ndarray = 0,
-    tri: bool = False,
-    interpret: bool = False,
-):
-    """_samebits_strip via ONE whole-strip pallas_call
-    (pallas_kernels.samebits_strip_fused): grid over row x column x
-    chunk-group blocks, int32 VMEM accumulator, int16 written once in
-    strip layout, tri skip at (512, 512) block granularity inside the
-    kernel. Same int16 strip contract as the XLA variant.
-
-    Round-5 decomposition of the round-4 schedule (bench/
-    probe_dense_gap.py, artifacts/dense_gap_r5.json, n=102,400): the old
-    scan-of-2048-column-tiles body (per-tile int32 materialization +
-    int16 convert + a transposing reshape of the ~400 MB strip) cost
-    0.11 s of the 1.61 s full-schedule wall (3.31 G pair/s vs the
-    output-free kernel+scan ceiling of 3.57); this fused strip runs the
-    same schedule in 1.54 s (3.42 G pair/s on strictly fewer computed
-    pairs — the finer tri skip) while still materializing the strip the
-    host consumers read. The remaining distance to bench.py's 4.87
-    headline is the round-3 finding that the XLA reduce-only rate is
-    unreachable by ANY materializing producer (3.80 standalone was the
-    Pallas tile's best). tc is kept for API compatibility; column
-    blocking is fixed at the measured-best 512."""
-    from .pallas_kernels import samebits_strip_fused
-
-    return samebits_strip_fused(
-        a_cm, mt_cm, s64, row0=i0, tri=tri, interpret=interpret
+@functools.partial(jax.jit, static_argnames=("s64", "tile", "tri"))
+def _samebits_strip_triton(m_t, q_t, r0, s64: int, tile: int, tri: bool):
+    """_samebits_strip on the Triton kernel: rows [r0, r0+tile) of the
+    word-major matrix m_t against every column of q_t, in one kernel call
+    that writes the int16 strip directly and skips, with tri=True, every
+    (BM, BN) block below the diagonal."""
+    a_t = jax.lax.dynamic_slice_in_dim(m_t, r0, tile, axis=1)
+    return samebits_triton(
+        a_t, q_t, s64, row0=r0, tri=tri, out_dtype=jnp.int16
     )
-
-
-def _use_pallas_samebits(s64: int, tile: int) -> bool:
-    """Kernel selection for the streaming strip engines: Pallas on TPU
-    (override with SKETCHTPU_SAMEBITS_KERNEL=pallas|xla) when the
-    chunk-group layout constraints hold."""
-    import os
-
-    kern = os.environ.get("SKETCHTPU_SAMEBITS_KERNEL", "auto")
-    want = kern == "pallas" or (
-        kern != "xla" and jax.default_backend() not in ("cpu",)
-    )
-    return want and s64 % 4 == 0 and tile % 512 == 0
 
 
 class DeviceDenseStreamEngine:
@@ -193,62 +164,38 @@ class DeviceDenseStreamEngine:
         self.tile = tile
         self.k_idx = k_idx
         self.n = ms.number_samples_loaded()
-        mat = np.ascontiguousarray(ms.bins_matrix(k_idx)).view(np.uint32)
-        pad = (-self.n) % tile
+        self._triton = samebits_kernel() == "triton"
+        self._mat = self._put(ms)
+
+    def _put(self, ms):
+        """Device copy of ms's plane for this k, padded to the tile:
+        word-major for the Triton strip, row-major for the XLA one."""
+        mat = np.ascontiguousarray(ms.bins_matrix(self.k_idx)).view(np.uint32)
+        pad = (-mat.shape[0]) % self.tile
         if pad:
             mat = np.pad(mat, ((0, pad), (0, 0)))
-        self._pallas = _use_pallas_samebits(self.s64, tile)
-        if self._pallas:
-            from .pallas_kernels import chunk_group_major
-
-            cm = chunk_group_major(jax.device_put(mat), self.s64)
-            self._mat_cm = cm
-            self._mat_cm_t = jnp.transpose(cm)
-            self._mat_cm_t.block_until_ready()
-            self._mat = None
-        else:
-            self._mat = jax.device_put(mat)
+        dev = jax.device_put(mat)
+        return word_major(dev) if self._triton else dev
 
     def _strip(self, r0: int):
-        if self._pallas:
-            a = self._mat_cm[r0 : r0 + self.tile]
-            return _samebits_strip_pallas(
-                a, self._mat_cm_t, self.s64, self.tile, jnp.int32(r0),
-                tri=True,
-            )
-        a = self._mat[r0 : r0 + self.tile]
-        return _samebits_strip(
-            a, self._mat, self.s64, self.tile, jnp.int32(r0), tri=True
-        )
+        return self.cross_strip(r0, self._mat, tri=True)
 
     def prep_query(self, query_ms):
         """Device-resident query matrix (this engine's k plane, padded to
         the column tile) for cross strips."""
-        nq = query_ms.number_samples_loaded()
-        qmat = np.ascontiguousarray(
-            query_ms.bins_matrix(self.k_idx)
-        ).view(np.uint32)
-        pad = (-nq) % self.tile
-        if pad:
-            qmat = np.pad(qmat, ((0, pad), (0, 0)))
-        if self._pallas:
-            from .pallas_kernels import chunk_group_major
+        return self._put(query_ms)
 
-            q = jnp.transpose(
-                chunk_group_major(jax.device_put(qmat), self.s64)
-            )
-            q.block_until_ready()
-            return q
-        return jax.device_put(qmat)
-
-    def cross_strip(self, r0: int, q):
+    def cross_strip(self, r0: int, q, tri: bool = False):
         """(tile, nq_padded) int16 samebits strip of ref rows
         [r0, r0+tile) against a prep_query() matrix."""
-        if self._pallas:
-            a = self._mat_cm[r0 : r0 + self.tile]
-            return _samebits_strip_pallas(a, q, self.s64, self.tile)
+        if self._triton:
+            return _samebits_strip_triton(
+                self._mat, q, jnp.int32(r0), self.s64, self.tile, tri
+            )
         a = self._mat[r0 : r0 + self.tile]
-        return _samebits_strip(a, q, self.s64, self.tile)
+        return _samebits_strip(
+            a, q, self.s64, self.tile, jnp.int32(r0), tri=tri
+        )
 
     def stream_self_dense(
         self, out, names, dist_type, comp=None, cutoff: float = 0.64,

@@ -2,8 +2,8 @@
 
 Numerics mirror /root/reference/src/distances/jaccard.rs operation-for-
 operation so that formatted f32 output is identical. The device path
-(jaccard_jax.py) computes the integer samebits kernel on TPU and feeds the
-same scalar pipeline.
+(jaccard_jax.py) computes the integer samebits kernel on the device and
+feeds the same scalar pipeline.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Device (TPU) sparse kNN engines: top-k neighbour selection on device.
+"""Device sparse kNN engines: top-k neighbour selection on device.
 
 The host drivers (api.py) argsort full distance rows — fine at 10k samples,
 dominated by host work at 100k+. Here the whole selection runs on device:
@@ -79,10 +79,9 @@ def _tile_topk_reduce(key: jnp.ndarray, knn: int, g: int = _MERGE_GROUP):
     value at a lower column since whole groups are column-ordered) — and
     sorting the selected group indices keeps the gathered columns
     ascending, so the follow-up `lax.top_k` breaks ties exactly as it
-    would on the full tile. `lax.top_k` cost is superlinear in width
-    (measured 0.6 -> 1.2 ns/element from 2k to 16k columns), so shrinking
-    its input 5x is the win; returns (key, None) when the tile is too
-    narrow to shrink."""
+    would on the full tile. The point is to shrink `lax.top_k`'s input
+    (its cost grows faster than its width); returns (key, None) when the
+    tile is too narrow to shrink."""
     tr, tc = key.shape
     ng = tc // g
     if tc % g or ng <= knn:
@@ -158,30 +157,23 @@ def _pack_shift(s64: int) -> int:
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "s64", "knn", "tc", "exclude_self", "masked", "pallas", "ti", "tj",
-        "interpret",
-    ),
+    static_argnames=("s64", "knn", "tc", "exclude_self", "masked"),
 )
 def _knn_scan_block_packed(
-    a: jnp.ndarray,  # (tr, W2) u32 rows — chunk-group-major when pallas
-    b: jnp.ndarray,  # (nbp, W2) u32 columns — (SW, nbp) transposed when pallas
+    a: jnp.ndarray,  # (tr, W2) u32 rows
+    b: jnp.ndarray,  # (nbp, W2) u32 columns, padded to a tc multiple
     row0: jnp.ndarray,
     nb_real: jnp.ndarray,
     s64: int,
     knn: int,
     tc: int,
     exclude_self: bool,
-    pallas: bool,
     a_sig: jnp.ndarray | None = None,  # (tr, S) i32 row signs (masked mode)
     b_sig: jnp.ndarray | None = None,  # (nbp, S) i32 column signs
     masked: bool = False,
-    ti: int = 512,
-    tj: int = 512,
-    interpret: bool = False,
 ):
     """Fast unmasked kNN scan: same contract as _knn_scan_block(masked=False)
-    but ~2x the throughput from two changes that leave selection semantics
+    with two changes for throughput that leave selection semantics
     IDENTICAL (asserted by parity tests):
 
     - validity masking is branch-gated per column tile: only tiles crossing
@@ -194,12 +186,7 @@ def _knn_scan_block_packed(
 
     Callers must guarantee nbp <= 2^shift - 1 (engine checks via
     _pack_shift; at the default s=1000 that is 1M columns)."""
-    if pallas:
-        from .pallas_kernels import samebits_pallas_chunked
-
-        sw, nbp = b.shape
-    else:
-        nbp, w2 = b.shape
+    nbp, w2 = b.shape
     tr = a.shape[0]
     n_tiles = nbp // tc
     shift = _pack_shift(s64)
@@ -210,11 +197,6 @@ def _knn_scan_block_packed(
         c0 = t * tc
 
         def compute_sb():
-            if pallas:
-                bt = jax.lax.dynamic_slice(b, (0, c0), (sw, tc))
-                return samebits_pallas_chunked(
-                    a, bt, s64, ti=ti, tj=tj, interpret=interpret
-                )
             bt = jax.lax.dynamic_slice(b, (c0, 0), (tc, w2))
             return _samebits_tile(a, bt, s64)
 
@@ -239,15 +221,13 @@ def _knn_scan_block_packed(
             return merged
 
         if masked:
-            # sign-equality prefilter: every tile pays for the mask (the
-            # inherent cost — measured at the XLA op-count floor; the
-            # bit-plane and in-kernel variants both lose, bench/
-            # probe_select2.py). A tile with NO candidate pairs skips
-            # samebits + selection entirely via the cond below; measured
-            # a no-op even on species-clustered data (u16-truncated signs
-            # give unrelated pairs a ~S/2^16 background shared-bin rate,
-            # so multi-M-pair tiles are never empty) — kept because it
-            # costs nothing and fires on degenerate inputs
+            # sign-equality prefilter: every tile pays for the mask. A
+            # tile with NO candidate pairs skips samebits + selection
+            # entirely via the cond below; it rarely fires on real data
+            # (u16-truncated signs give unrelated pairs a ~S/2^16
+            # background shared-bin rate, so multi-M-pair tiles are never
+            # empty) — kept because it costs nothing and fires on
+            # degenerate inputs
             st = jax.lax.dynamic_slice(
                 b_sig, (c0, 0), (tc, b_sig.shape[1])
             )
@@ -284,68 +264,6 @@ def _knn_scan_block_packed(
     )
     vals = jnp.where(carry < 0, _NEG, carry >> shift)
     idxs = jnp.where(carry < 0, 0x7FFFFFFF, colmask - (carry & colmask))
-    return vals, idxs
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "s64", "knn", "tc", "exclude_self", "masked", "ti", "tj", "interpret"
-    ),
-)
-def _knn_scan_block_pallas(
-    a_cm: jnp.ndarray,  # (tr, SW) u32 chunk-group-major rows (tr % ti == 0)
-    bt_cm: jnp.ndarray,  # (SW, nbp) u32 chunk-group-major transposed columns
-    row0: jnp.ndarray,
-    nb_real: jnp.ndarray,
-    a_sig: jnp.ndarray,
-    b_sig: jnp.ndarray,
-    s64: int,
-    knn: int,
-    tc: int,
-    exclude_self: bool,
-    masked: bool,
-    ti: int = 512,
-    tj: int = 512,
-    interpret: bool = False,
-):
-    """Same contract as _knn_scan_block but with the VMEM-blocked Pallas
-    outer-product samebits tile (pallas_kernels.samebits_pallas_chunked)
-    instead of the XLA fusion tile: each A block / B^T tile is read from
-    HBM once per (ti, tj) output block, so the scan stays VPU-bound. The
-    validity mask / group shrink / running top-k merge are unchanged XLA
-    around the kernel, so selection semantics are identical."""
-    from .pallas_kernels import samebits_pallas_chunked
-
-    sw, nbp = bt_cm.shape
-    tr = a_cm.shape[0]
-    n_tiles = nbp // tc
-    init_v = jnp.full((tr, knn), _NEG, jnp.int32) + row0 * 0
-    init_i = jnp.full((tr, knn), 0x7FFFFFFF, jnp.int32) + row0 * 0
-
-    def body(carry, t):
-        vals, idxs = carry
-        c0 = t * tc
-        bt = jax.lax.dynamic_slice(bt_cm, (0, c0), (sw, tc))
-        sb = samebits_pallas_chunked(
-            a_cm, bt, s64, ti=ti, tj=tj, interpret=interpret
-        )
-        cols, valid = _tile_valid(
-            c0, tr, tc, row0, nb_real, exclude_self, masked, a_sig, b_sig
-        )
-        sb = jnp.where(valid, sb, _NEG)
-        sb, loc = _tile_topk_reduce(sb, knn)
-        if loc is not None:
-            cols = jnp.take_along_axis(cols, loc, axis=1)
-        cat_v = jnp.concatenate([vals, sb], axis=1)
-        cat_i = jnp.concatenate([idxs, cols], axis=1)
-        v2, sel = jax.lax.top_k(cat_v, knn)
-        i2 = jnp.take_along_axis(cat_i, sel, axis=1)
-        return (v2, i2), None
-
-    (vals, idxs), _ = jax.lax.scan(
-        body, (init_v, init_i), jnp.arange(n_tiles, dtype=jnp.int32)
-    )
     return vals, idxs
 
 
@@ -424,90 +342,10 @@ def _knn_scan_block_comp(
     return vals, idxs
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "s64", "knn", "tc", "exclude_self", "masked", "cutoff", "ti", "tj",
-        "interpret",
-    ),
-)
-def _knn_scan_block_comp_pallas(
-    a_cm: jnp.ndarray,  # (tr, SW) u32 chunk-group-major rows
-    bt_cm: jnp.ndarray,  # (SW, nbp) u32 chunk-group-major transposed columns
-    row0: jnp.ndarray,
-    nb_real: jnp.ndarray,
-    a_sig: jnp.ndarray,
-    b_sig: jnp.ndarray,
-    c1: jnp.ndarray,
-    c2: jnp.ndarray,
-    s64: int,
-    knn: int,
-    tc: int,
-    exclude_self: bool,
-    masked: bool,
-    cutoff: float,
-    ti: int = 512,
-    tj: int = 512,
-    interpret: bool = False,
-):
-    """_knn_scan_block_comp with the Pallas samebits tile; the corrected-
-    Jaccard selection key and top-k merge stay in XLA around it."""
-    from .pallas_kernels import samebits_pallas_chunked
-
-    sw, nbp = bt_cm.shape
-    tr = a_cm.shape[0]
-    n_tiles = nbp // tc
-    maxnbits = float(s64 * 64)
-    expected = float(int(s64 * 64) >> BBITS)
-    init_k = jnp.full((tr, knn), -jnp.inf, jnp.float32) + row0 * 0
-    init_v = jnp.full((tr, knn), _NEG, jnp.int32) + row0 * 0
-    init_i = jnp.full((tr, knn), 0x7FFFFFFF, jnp.int32) + row0 * 0
-
-    def body(carry, t):
-        keys, vals, idxs = carry
-        c0 = t * tc
-        bt = jax.lax.dynamic_slice(bt_cm, (0, c0), (sw, tc))
-        sb = samebits_pallas_chunked(
-            a_cm, bt, s64, ti=ti, tj=tj, interpret=interpret
-        )
-        cols, valid = _tile_valid(
-            c0, tr, tc, row0, nb_real, exclude_self, masked, a_sig, b_sig
-        )
-        diff = jnp.maximum(sb.astype(jnp.float32) - expected, 0.0)
-        j = (diff * maxnbits / (maxnbits - expected)) / maxnbits
-        c2t = jax.lax.dynamic_slice(c2, (c0,), (tc,))
-        prod = c1[:, None] * c2t[None, :]
-        factor = prod / (c1[:, None] + c2t[None, :] - prod)
-        j = jnp.where(
-            prod >= jnp.float32(cutoff), jnp.minimum(j / factor, 1.0), j
-        )
-        key = jnp.where(valid, j, -jnp.inf)
-        sb = jnp.where(valid, sb, _NEG)
-        key, loc = _tile_topk_reduce(key, knn)
-        if loc is not None:
-            sb = jnp.take_along_axis(sb, loc, axis=1)
-            cols = jnp.take_along_axis(cols, loc, axis=1)
-        cat_k = jnp.concatenate([keys, key], axis=1)
-        cat_v = jnp.concatenate([vals, sb], axis=1)
-        cat_i = jnp.concatenate([idxs, cols], axis=1)
-        k2, sel = jax.lax.top_k(cat_k, knn)
-        return (
-            k2,
-            jnp.take_along_axis(cat_v, sel, axis=1),
-            jnp.take_along_axis(cat_i, sel, axis=1),
-        ), None
-
-    (keys, vals, idxs), _ = jax.lax.scan(
-        body, (init_k, init_v, init_i), jnp.arange(n_tiles, dtype=jnp.int32)
-    )
-    return vals, idxs
-
-
 def _ca_topk_merge(carry, ca, c0, row0, nb_real, a_sig, b_sig, knn,
                    exclude_self, masked):
     """Merge one (tr, tc, 2) core/acc tile into the running top-k carry
-    (shared by the XLA and Pallas CA scan kernels; selection key is the
-    negated core distance)."""
+    (selection key is the negated core distance)."""
     keys, accs, idxs = carry
     tr, tc = ca.shape[0], ca.shape[1]
     cols, valid = _tile_valid(
@@ -577,68 +415,6 @@ def _knn_scan_block_ca(
             a_stack, bt, s64, kmers, sketch_size,
             c1=c1, c2=c2t, cutoff=cutoff,
         )
-        return _ca_topk_merge(
-            carry, ca, c0, row0, nb_real, a_sig, b_sig, knn,
-            exclude_self, masked,
-        ), None
-
-    (keys, accs, idxs), _ = jax.lax.scan(
-        body, (init_key, init_acc, init_i), jnp.arange(n_tiles, dtype=jnp.int32)
-    )
-    return -keys, accs, idxs
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "s64", "kmers", "sketch_size", "knn", "tc", "exclude_self",
-        "masked", "cutoff",
-    ),
-)
-def _knn_scan_block_ca_pallas(
-    a_cm: jnp.ndarray,  # (tr, SW) u32 chunk-major rows (tr % 128 == 0)
-    bt_cm: jnp.ndarray,  # (SW, nbp) u32 chunk-major transposed columns
-    row0: jnp.ndarray,
-    nb_real: jnp.ndarray,
-    a_sig: jnp.ndarray,  # (tr, S) i32 row signs (masked mode; else (tr, 1))
-    b_sig: jnp.ndarray,  # (nbp, S) i32 column signs (masked mode)
-    s64: int,
-    kmers: tuple[int, ...],
-    sketch_size: int,
-    knn: int,
-    tc: int,
-    exclude_self: bool,
-    masked: bool,
-    c1: jnp.ndarray | None = None,  # (tr,) f32 row completeness
-    c2: jnp.ndarray | None = None,  # (nbp,) f32 column completeness
-    cutoff: float = 0.64,
-):
-    """Same contract as _knn_scan_block_ca but with the fused multi-k
-    Pallas core/accessory tile (coreacc_pallas.py) as the tile kernel."""
-    from .coreacc_pallas import coreacc_pallas
-
-    sw = bt_cm.shape[0]
-    tr = a_cm.shape[0]
-    nbp = bt_cm.shape[1]
-    n_tiles = nbp // tc
-    init_key = jnp.full((tr, knn), -jnp.inf, jnp.float32)
-    init_acc = jnp.zeros((tr, knn), jnp.float32)
-    init_i = jnp.full((tr, knn), 0x7FFFFFFF, jnp.int32)
-    ti = 128 if tr % 128 == 0 else tr
-    tj = 512 if tc % 512 == 0 else tc
-    comp = c1 is not None
-
-    def body(carry, t):
-        c0 = t * tc
-        bt = jax.lax.dynamic_slice(bt_cm, (0, c0), (sw, tc))
-        ca = coreacc_pallas(
-            a_cm, bt, s64, kmers, sketch_size, ti=ti, tj=tj,
-            c1=c1,
-            c2=jax.lax.dynamic_slice(c2, (c0,), (tc,)) if comp else None,
-            cutoff=cutoff,
-        )
-        # the prefilter mask runs in XLA around the Pallas tile; it fuses
-        # with the where/top_k chain, so no kernel change needed
         return _ca_topk_merge(
             carry, ca, c0, row0, nb_real, a_sig, b_sig, knn,
             exclude_self, masked,
@@ -988,8 +764,6 @@ class DeviceKnnEngine(PreclusterKnnMixin):
 
     def __init__(self, ref_ms, row_tile: int = 2048,
                  col_tile: int | None = None):
-        import os
-
         from ..runtime import enable_compilation_cache
 
         enable_compilation_cache()
@@ -999,12 +773,9 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         # col_tile is the padding multiple and the scans' column tile:
         # with the grouped merge, the big top_k input stays ~knn*9
         # regardless of tile width, so wider tiles amortise the per-tile
-        # group-max/top-k (measured 1.21 -> 1.60 G pair/s plain and
-        # 1.06 -> 1.31 masked from 2048 to 8192; the sign-equality mask
-        # fuses into the validity reduce, so no VMEM blowup). Padded
-        # columns are computed and discarded, so the default picks the
-        # widest tile whose padding waste stays under ~10% of the run
-        # (50k samples -> 4096, 100k+ -> 8192)
+        # group-max/top-k. Padded columns are computed and discarded, so
+        # the default picks the widest tile whose padding waste stays
+        # under ~10% of the run (50k samples -> 4096, 100k+ -> 8192)
         if col_tile is None:
             n = ref_ms.number_samples_loaded()
             col_tile = 2048
@@ -1017,42 +788,6 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         self._planes: dict[int, jax.Array] = {}
         self._planes_host: dict[int, np.ndarray] = {}
         self._dummy_sig = np.zeros((1, 1), dtype=np.int32)
-        kern = os.environ.get("SKETCHTPU_COREACC_KERNEL", "auto")
-        self._use_pallas_ca = kern == "pallas" or (
-            kern != "xla" and jax.default_backend() not in ("cpu",)
-        )
-        # single-k samebits tile kernel: the VMEM-blocked Pallas tile reads
-        # each operand block from HBM once per (ti, tj) output block
-        # (measured ~2x over the XLA fusion tile on the scan shape); the
-        # chunk-group layout needs s64 % 4 == 0 and tj | col_tile
-        kern_sb = os.environ.get("SKETCHTPU_SAMEBITS_KERNEL", "auto")
-        self._use_pallas_sb = (
-            kern_sb == "pallas"
-            or (kern_sb != "xla" and jax.default_backend() not in ("cpu",))
-        ) and self.s64 % 4 == 0 and self.col_tile % 512 == 0
-        self._planes_cm: dict[int, jax.Array] = {}
-        self._planes_cm_t: dict[int, jax.Array] = {}
-
-    def _plane_cm(self, k_idx: int) -> jax.Array:
-        """Chunk-group-major device plane (row side of the Pallas tile)."""
-        if k_idx not in self._planes_cm:
-            from .pallas_kernels import chunk_group_major
-
-            p = jax.device_put(
-                _pad_rows(self._plane_host(k_idx), self.col_tile)
-            )
-            cm = chunk_group_major(p, self.s64)
-            cm.block_until_ready()
-            self._planes_cm[k_idx] = cm
-        return self._planes_cm[k_idx]
-
-    def _plane_cm_t(self, k_idx: int) -> jax.Array:
-        """Transposed chunk-group-major plane (column side)."""
-        if k_idx not in self._planes_cm_t:
-            t = jnp.transpose(self._plane_cm(k_idx))
-            t.block_until_ready()
-            self._planes_cm_t[k_idx] = t
-        return self._planes_cm_t[k_idx]
 
     def _plane_host(self, k_idx: int) -> np.ndarray:
         if k_idx not in self._planes_host:
@@ -1101,7 +836,6 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         c2_dev: jax.Array | None = None,
         cutoff: float = 0.64,
         a_dev: jax.Array | None = None,
-        cm: tuple[jax.Array, jax.Array] | None = None,
     ):
         """Generic row-block scan; a_mat is host u32 (na, W2). row_base is
         the global index of a_mat's first row (self-exclusion offset when
@@ -1110,12 +844,8 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         device-resident matrix holding the same rows at global indices
         (the self case passes the column matrix): row blocks then slice
         on device instead of re-uploading planes that already live in
-        HBM. cm, when given, is (a_cm_dev, bt_cm_dev) — chunk-group-major
-        device matrices (a_cm_dev indexed like a_dev) — and switches the
-        samebits tile to the Pallas kernel; b_dev may then be None."""
-        na = a_mat.shape[0] if a_mat is not None else (
-            cm[0].shape[0] - row_base
-        )
+        device memory."""
+        na = a_mat.shape[0]
         masked = a_sig is not None
         tc = self.col_tile
         comp = c1_rows is not None
@@ -1123,85 +853,17 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         out_i = np.empty((na, knn), dtype=np.int32)
         dummy = self._dummy_sig
         # dispatch every row block before collecting any (async): only the
-        # (rows x knn) results cross the link, so nothing bounds the window
+        # (rows x knn) results come back, so nothing bounds the window
         pending = []
-        # packed fast path: unmasked, uncorrected scans whose column count
-        # fits the int32 key's column field (1M at the default s=1000)
-        n_cols = cm[1].shape[1] if cm is not None else (
-            b_dev.shape[0] if b_dev is not None else 0
-        )
+        # packed fast path: uncorrected scans whose column count fits the
+        # int32 key's column field (1M at the default s=1000)
         packed_ok = (
             not comp
-            and 0 < n_cols <= (1 << _pack_shift(self.s64)) - 1
+            and 0 < b_dev.shape[0] <= (1 << _pack_shift(self.s64)) - 1
         )
         for r0 in range(0, na, self.row_tile):
             r1 = min(r0 + self.row_tile, na)
             sig_blk = a_sig[r0:r1].astype(np.int32) if masked else dummy
-            if cm is not None:
-                a_cm_dev, bt_cm_dev = cm
-                ti = 512
-                a_blk = a_cm_dev[row_base + r0 : row_base + r1]
-                pad = (-(r1 - r0)) % ti
-                c1_blk = (
-                    c1_rows[r0:r1].astype(np.float32) if comp else None
-                )
-                if pad:
-                    a_blk = jnp.pad(a_blk, ((0, pad), (0, 0)))
-                    if masked:
-                        sig_blk = np.pad(sig_blk, ((0, pad), (0, 0)))
-                    if comp:
-                        c1_blk = np.pad(c1_blk, (0, pad), constant_values=1.0)
-                if packed_ok:
-                    v, i = _knn_scan_block_packed(
-                        a_blk,
-                        bt_cm_dev,
-                        np.int32(row_base + r0),
-                        np.int32(self.n),
-                        s64=self.s64,
-                        knn=knn,
-                        tc=tc,
-                        exclude_self=exclude_self,
-                        pallas=True,
-                        a_sig=sig_blk if masked else None,
-                        b_sig=b_sig_dev if masked else None,
-                        masked=masked,
-                        ti=ti,
-                    )
-                elif comp:
-                    v, i = _knn_scan_block_comp_pallas(
-                        a_blk,
-                        bt_cm_dev,
-                        np.int32(row_base + r0),
-                        np.int32(self.n),
-                        sig_blk,
-                        b_sig_dev if masked else dummy,
-                        jnp.asarray(c1_blk),
-                        c2_dev,
-                        s64=self.s64,
-                        knn=knn,
-                        tc=tc,
-                        exclude_self=exclude_self,
-                        masked=masked,
-                        cutoff=cutoff,
-                        ti=ti,
-                    )
-                else:
-                    v, i = _knn_scan_block_pallas(
-                        a_blk,
-                        bt_cm_dev,
-                        np.int32(row_base + r0),
-                        np.int32(self.n),
-                        sig_blk,
-                        b_sig_dev if masked else dummy,
-                        s64=self.s64,
-                        knn=knn,
-                        tc=tc,
-                        exclude_self=exclude_self,
-                        masked=masked,
-                        ti=ti,
-                    )
-                pending.append((r0, r1, v, i))
-                continue
             a_blk = (
                 a_dev[row_base + r0 : row_base + r1]
                 if a_dev is not None
@@ -1234,7 +896,6 @@ class DeviceKnnEngine(PreclusterKnnMixin):
                     knn=knn,
                     tc=tc,
                     exclude_self=exclude_self,
-                    pallas=False,
                     a_sig=sig_blk if masked else None,
                     b_sig=b_sig_dev if masked else None,
                     masked=masked,
@@ -1275,15 +936,7 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         rows (multi-process sharding), neighbours always range over all
         samples. With completeness the device selects by the corrected
         f32 Jaccard and the host recomputes exact f64 values."""
-        if self._use_pallas_sb:
-            cm = (
-                self._plane_cm(dist_type.k_idx),
-                self._plane_cm_t(dist_type.k_idx),
-            )
-            b_dev = None
-        else:
-            cm = None
-            b_dev = self._plane(dist_type.k_idx)
+        b_dev = self._plane(dist_type.k_idx)
         a_mat = self._plane_host(dist_type.k_idx)
         base = 0
         comp = (
@@ -1303,7 +956,6 @@ class DeviceKnnEngine(PreclusterKnnMixin):
             c2_dev=self._comp_cols_dev(comp) if comp is not None else None,
             cutoff=completeness_cutoff,
             a_dev=b_dev,
-            cm=cm,
         )
         return self._rows_from_samebits(
             sb, idx, dist_type,
@@ -1318,17 +970,7 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         q = np.ascontiguousarray(query_ms.bins_matrix(dist_type.k_idx)).view(
             np.uint32
         )
-        if self._use_pallas_sb:
-            from .pallas_kernels import chunk_group_major
-
-            cm = (
-                chunk_group_major(jnp.asarray(q), self.s64),
-                self._plane_cm_t(dist_type.k_idx),
-            )
-            b_dev = None
-        else:
-            cm = None
-            b_dev = self._plane(dist_type.k_idx)
+        b_dev = self._plane(dist_type.k_idx)
         c1 = c2 = None
         if (
             ref_completeness_vec is not None
@@ -1341,7 +983,6 @@ class DeviceKnnEngine(PreclusterKnnMixin):
             c1_rows=c1,
             c2_dev=self._comp_cols_dev(c2) if c2 is not None else None,
             cutoff=completeness_cutoff,
-            cm=cm,
         )
         return self._rows_from_samebits(
             sb, idx, dist_type,
@@ -1349,24 +990,6 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         )
 
     # --- multi-k core/accessory ---
-
-    def _stack_cm(self) -> jax.Array:
-        """Chunk-major reference stack (row side of the Pallas tile)."""
-        if "stack_cm" not in self.__dict__:
-            from .coreacc_pallas import chunk_major
-
-            self.__dict__["stack_cm"] = chunk_major(self._stack(), self.s64)
-            self.__dict__["stack_cm"].block_until_ready()
-            # the raw stack stays resident: the exact-value pass gathers
-            # selected pairs from it after the Pallas scan
-        return self.__dict__["stack_cm"]
-
-    def _stack_cm_t(self) -> jax.Array:
-        """Chunk-major transposed reference stack for the Pallas tile."""
-        if "stack_cm_t" not in self.__dict__:
-            self.__dict__["stack_cm_t"] = jnp.transpose(self._stack_cm())
-            self.__dict__["stack_cm_t"].block_until_ready()
-        return self.__dict__["stack_cm_t"]
 
     def _knn_coreacc(self, row_stack: np.ndarray, nrows: int, knn: int,
                      exclude_self: bool, row_base: int = 0,
@@ -1380,10 +1003,10 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         """Shared row-block driver for self/cross core-acc kNN; row_stack is
         (nk, nrows, W2) u32. a_sig/b_sig_dev add the inverted-index
         prefilter mask (precluster mode). c1_rows/c2_dev apply the MAG
-        completeness correction on device, inside whichever tile kernel
-        (fused Pallas or XLA) is active. self_rows marks row_stack as a
-        [row_base:row_base+nrows] view of the reference stack, so row
-        blocks slice the device-resident copy instead of re-uploading."""
+        completeness correction on device, inside the tile's f32 chain.
+        self_rows marks row_stack as a [row_base:row_base+nrows] view of
+        the reference stack, so row blocks slice the device-resident copy
+        instead of re-uploading."""
         if nrows == 0:  # empty multi-process row slice
             return SparseKnnRows(
                 np.zeros((0, knn), np.int32),
@@ -1393,88 +1016,40 @@ class DeviceKnnEngine(PreclusterKnnMixin):
         kmers = tuple(self.ms.kmer_lengths)
         masked = a_sig is not None
         comp = c1_rows is not None
-        use_pallas = self._use_pallas_ca
         dummy = self._dummy_sig
-        if use_pallas:
-            from .coreacc_pallas import chunk_major
-
-            bt_cm = self._stack_cm_t()
-            row_cm = (
-                self._stack_cm()
-                if self_rows
-                else chunk_major(jnp.asarray(row_stack), self.s64)
-            )
-        else:
-            b_stack = self._stack()
+        b_stack = self._stack()
         pending = []
         for r0 in range(0, nrows, self.row_tile):
             r1 = min(r0 + self.row_tile, nrows)
             sig_blk = (
                 a_sig[r0:r1].astype(np.int32) if masked else dummy
             )
-            if use_pallas:
-                a_blk = (
-                    row_cm[row_base + r0 : row_base + r1]
+            core, acc, idx = _knn_scan_block_ca(
+                (
+                    b_stack[:, row_base + r0 : row_base + r1, :]
                     if self_rows
-                    else row_cm[r0:r1]
-                )
-                pad = (-(r1 - r0)) % 128
-                c1_blk = (
-                    c1_rows[r0:r1].astype(np.float32) if comp else None
-                )
-                if pad:
-                    a_blk = jnp.pad(a_blk, ((0, pad), (0, 0)))
-                    if masked:
-                        sig_blk = np.pad(sig_blk, ((0, pad), (0, 0)))
-                    if comp:
-                        c1_blk = np.pad(
-                            c1_blk, (0, pad), constant_values=1.0
-                        )
-                core, acc, idx = _knn_scan_block_ca_pallas(
-                    a_blk,
-                    bt_cm,
-                    np.int32(row_base + r0),
-                    np.int32(self.n),
-                    sig_blk,
-                    b_sig_dev if masked else dummy,
-                    s64=self.s64,
-                    kmers=kmers,
-                    sketch_size=self.ms.sketch_size,
-                    knn=knn,
-                    tc=self.col_tile,
-                    exclude_self=exclude_self,
-                    masked=masked,
-                    c1=jnp.asarray(c1_blk) if comp else None,
-                    c2=c2_dev if comp else None,
-                    cutoff=cutoff,
-                )
-            else:
-                core, acc, idx = _knn_scan_block_ca(
-                    (
-                        b_stack[:, row_base + r0 : row_base + r1, :]
-                        if self_rows
-                        else jnp.asarray(np.asarray(row_stack)[:, r0:r1, :])
-                    ),
-                    b_stack,
-                    np.int32(row_base + r0),
-                    np.int32(self.n),
-                    sig_blk,
-                    b_sig_dev if masked else dummy,
-                    s64=self.s64,
-                    kmers=kmers,
-                    sketch_size=self.ms.sketch_size,
-                    knn=knn,
-                    tc=self.col_tile,
-                    exclude_self=exclude_self,
-                    masked=masked,
-                    c1=(
-                        jnp.asarray(c1_rows[r0:r1].astype(np.float32))
-                        if comp
-                        else None
-                    ),
-                    c2=c2_dev if comp else None,
-                    cutoff=cutoff,
-                )
+                    else jnp.asarray(np.asarray(row_stack)[:, r0:r1, :])
+                ),
+                b_stack,
+                np.int32(row_base + r0),
+                np.int32(self.n),
+                sig_blk,
+                b_sig_dev if masked else dummy,
+                s64=self.s64,
+                kmers=kmers,
+                sketch_size=self.ms.sketch_size,
+                knn=knn,
+                tc=self.col_tile,
+                exclude_self=exclude_self,
+                masked=masked,
+                c1=(
+                    jnp.asarray(c1_rows[r0:r1].astype(np.float32))
+                    if comp
+                    else None
+                ),
+                c2=c2_dev if comp else None,
+                cutoff=cutoff,
+            )
             pending.append((r0, r1, core, acc, idx))
         cores, accs, idxs = [], [], []
         for r0, r1, core, acc, idx in pending:
@@ -1578,15 +1153,7 @@ class DeviceKnnEngine(PreclusterKnnMixin):
 
     def _pc_scan(self, dist_type, lo, hi, signs, knn, comp, cutoff):
         sig_dev = self._pc_sig_dev(signs)
-        if self._use_pallas_sb:
-            cm = (
-                self._plane_cm(dist_type.k_idx),
-                self._plane_cm_t(dist_type.k_idx),
-            )
-            b_dev = None
-        else:
-            cm = None
-            b_dev = self._plane(dist_type.k_idx)
+        b_dev = self._plane(dist_type.k_idx)
         a_mat = self._plane_host(dist_type.k_idx)
         return self._scan_rows(
             a_mat[lo:hi],
@@ -1600,23 +1167,12 @@ class DeviceKnnEngine(PreclusterKnnMixin):
             c2_dev=self._comp_cols_dev(comp) if comp is not None else None,
             cutoff=cutoff,
             a_dev=b_dev,
-            cm=cm,
         )
 
     def _pc_scan_subset(self, dist_type, rows, knn, comp, cutoff):
         a_mat = self._plane_host(dist_type.k_idx)
         sub = a_mat[rows]
-        if self._use_pallas_sb:
-            from .pallas_kernels import chunk_group_major
-
-            cm = (
-                chunk_group_major(jnp.asarray(sub), self.s64),
-                self._plane_cm_t(dist_type.k_idx),
-            )
-            b_dev = None
-        else:
-            cm = None
-            b_dev = self._plane(dist_type.k_idx)
+        b_dev = self._plane(dist_type.k_idx)
         return self._scan_rows(
             sub,
             b_dev,
@@ -1625,7 +1181,6 @@ class DeviceKnnEngine(PreclusterKnnMixin):
             c1_rows=comp[rows] if comp is not None else None,
             c2_dev=self._comp_cols_dev(comp) if comp is not None else None,
             cutoff=cutoff,
-            cm=cm,
         )
 
     def _pc_ca(self, lo, hi, signs, knn, comp, cutoff):

@@ -1,11 +1,11 @@
-"""Device (JAX/XLA/TPU) ntHash + sign extraction.
+"""Device (JAX/XLA) ntHash + sign extraction.
 
-TPU-native formulation (see hash/nthash_np.py for the derivation):
+Data-parallel formulation (see hash/nthash_np.py for the derivation):
 
   hash(p) = min( XOR_j srol^{k-1-j}(SEED[s[p+j]]),
                  XOR_j srol^{j}(RC_SEED[s[p+j]]) )
 
-Everything is computed on uint32 lane pairs (TPU has no native u64):
+Everything is computed on uint32 word pairs (no u64 arithmetic needed):
 per-tap lookup of the statically rotated seed tables is a 3-deep select
 tree over the 2-bit base code, the windowed XOR is a static-slice reduction,
 and the Mersenne reduction mod 2^61-1 is shift-add. Division by the bin
@@ -241,8 +241,8 @@ def hash_bin_kernel(
 
     Host->device traffic is 2 bits/base (packed codes) + 1 bit/base (break
     flags); window validity and genome ids are reconstructed on device with
-    cumulative sums (searchsorted over millions of queries is slow on TPU,
-    and scatter even slower).
+    cumulative sums rather than a searchsorted over millions of queries or
+    a scatter.
 
     Per-bin minima come from a two-key sort: the key packs (genome index,
     sign hi-word) into one u32 — the bin index is monotone in the sign, so

@@ -37,9 +37,8 @@ reports no fallback — asserted by tests/test_multik.py.
 
 Single-k requests route here only for small genomes (<= 1 Mb): with no
 multi-k pass sharing the win is purely the larger genome groups (96 vs 7
-per dispatch) — measured 2.6x for 64 x 250 kb genomes and neutral at
-2 Mb (bench/probe_singlek.py), so big single-k genomes stay on the exact
-kernel (sketch_jax._fast_eligible).
+per dispatch), so big single-k genomes stay on the exact kernel
+(sketch_jax._fast_eligible). The cut-over is not yet tuned on the GPU.
 """
 
 from __future__ import annotations
@@ -107,11 +106,9 @@ def _sub_pair(lo, hi, t_lo, t_hi):
 def _compact_candidates(keep_p, key0_p, hi_p, lo_p, blk, w, sentinel_key):
     """Blockwise monotone compaction of already-padded 1-D streams: slot s
     of a block holds the (s+1)-th kept element (kpos is a cumsum, so a
-    masked one-hot reduce — no scatter, no gather). Blocks sit on the
-    128-lane axis and slots on sublanes, so the (B, w, blk) hit tensor
-    really costs O(stream * w) with w a multiple of 8 (the slots-on-lanes
-    layout padded w up to a full lane tile). Shared by the DNA and AA
-    multi-k kernels. Returns flattened (c_k0, c_hi, c_lo) plus the max
+    masked one-hot reduce — no scatter, no gather). The (B, w, blk) hit
+    tensor costs O(stream * w) with w a multiple of 8. Shared by the DNA
+    and AA multi-k kernels. Returns flattened (c_k0, c_hi, c_lo) plus the max
     per-block keep count (overflow detection)."""
     nb_blocks = keep_p.shape[0] // blk
     kb = keep_p.reshape(nb_blocks, blk)
@@ -193,9 +190,9 @@ def multik_hash_bin_kernel(
     sflags = jnp.zeros(n0, dtype=_I32).at[starts].add(1, mode="drop")
     gidx = jnp.cumsum(sflags, dtype=_I32)[:m] - 1
 
-    # per-element thresholds (one-hot select over the small genome table;
-    # measured 36 ms at 16M x 96 rows on the v5e — cheaper than a gather,
-    # which the TPU runs at ~5x that, and than a prefix-xor scan)
+    # per-element thresholds: a one-hot select over the small genome table
+    # in place of a gather or a prefix-xor scan (not yet measured against
+    # either on the GPU)
     tl = jnp.zeros(m, dtype=_U32)
     th = jnp.zeros(m, dtype=_U32)
     for g in range(out_rows):
@@ -203,9 +200,8 @@ def multik_hash_bin_kernel(
         tl = jnp.where(sel, t_lo[g], tl)
         th = jnp.where(sel, t_hi[g], th)
     # materialize once: without the barrier XLA re-fuses the out_rows-deep
-    # select chain into every k's prefilter consumer — measured 19 ms per
-    # emit at 96 rows x 16M (45% of the whole 7-k kernel); one HBM
-    # round-trip is ~0.2 ms
+    # select chain into every k's prefilter consumer, where one round-trip
+    # through device memory is cheap
     tl, th = jax.lax.optimization_barrier((tl, th))
 
     seed_row = _seed_rows_u32()
@@ -262,8 +258,7 @@ def multik_hash_bin_kernel(
         )
         keep = ok & (under | (bin_idx != bin_shift))
 
-        # blockwise monotone compaction (shared helper; blocks on the
-        # 128-lane axis, slots on sublanes)
+        # blockwise monotone compaction (shared helper)
         c_k0, c_hi, c_lo, count_max = _compact_candidates(
             jnp.pad(keep, (0, pad_tail)),
             jnp.pad((_I32(k_idx) << 8) | gidx, (0, pad_tail)),
@@ -324,16 +319,11 @@ def pick_block_geometry(max_density: float, blk: int = 1024) -> tuple[int, int]:
     with a ~6-sigma margin, bucketed to limit recompilation.
 
     The compaction reduce costs O(stream * w) per k (the (B, w, blk)
-    one-hot hit tensor with blocks on the lane axis and slots on
-    sublanes), while the candidate-sort volume is (stream/blk) * w — so w
-    is the smallest sufficient multiple of the 8-row sublane tile (the
-    previous slots-on-lanes layout always burned a full 128-lane tile per
-    element) and blk balances the two: the on-chip sweep
-    (bench/sweep_compaction.py) measured blk=1024 best at both 2 Mb
-    (w=40, 214 Mbase-k/s, vs 191 before the sublane layout) and 250 kb
-    genomes (w=128, 141 vs 94); blk=128 minimises w but quadruples the
-    sort and loses ~35%. Any overflow still falls back to the exact
-    kernel, so geometry never affects results."""
+    one-hot hit tensor), while the candidate-sort volume is
+    (stream/blk) * w — so w is the smallest sufficient multiple of 8 and
+    blk balances the two. blk=1024 is not yet retuned on the GPU
+    (ROADMAP). Any overflow still falls back to the exact kernel, so
+    geometry never affects results."""
     lam = max_density * blk
     need = int(lam + 6.0 * np.sqrt(lam + 1.0) + 8.0)
     for w in (16, 24, 32, 40, 48, 56, 64, 96, 128, 160, 192, 224, 256):

@@ -1,6 +1,6 @@
 """NumPy ntHash: data-parallel canonical rolling hash.
 
-Key reformulation (this is what makes the hash TPU-friendly): the ntHash
+Key reformulation (this is what makes the hash data-parallel): the ntHash
 recurrence fh' = srol(fh) ^ SEED[b] unrolls to a *windowed XOR of
 statically-rotated table lookups*:
 
@@ -14,8 +14,8 @@ the same set of hash values as the reference iterator
 validity (N bases, record boundaries, quality-masked bases) is a prefix-sum
 mask over break positions.
 
-This module is the CPU oracle; the JAX/TPU implementation in nthash_jax.py
-computes the identical function on uint32 lane pairs.
+This module is the CPU oracle; the JAX implementation in nthash_jax.py
+computes the identical function on uint32 word pairs.
 """
 
 from __future__ import annotations

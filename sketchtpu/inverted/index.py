@@ -1,7 +1,7 @@
 """Inverted sketch index (.ski/.skq): build, query, precluster.
 
 The reference stores one HashMap<u16 sign -> RoaringBitmap of samples> per
-bin (/root/reference/src/inverted.rs:48-58). The TPU-native in-memory
+bin (reference src/inverted.rs:48-58). The in-memory
 representation here is the dense [n_samples x sketch_size] uint16 sign
 matrix — bin queries become vectorised equality reductions (and tile kernels
 on device, see dist/jaccard_jax.py) — while the .ski file keeps the
@@ -433,7 +433,8 @@ class Inverted:
         """Number of distinct sample pairs sharing at least one bin (the
         precluster --count mode, inverted.rs:271-300). Tiled over pair
         blocks so it scales; `engine` (inverted/device.py) runs the
-        equality-any tiles on TPU. With row_range, counts only pairs whose
+        equality-any tiles on the device. With row_range, counts only pairs
+        whose
         smaller index falls in [lo, hi) — rank partials sum to the total."""
         if engine is not None:
             return engine.any_shared_bin_count(row_range=row_range)
@@ -498,7 +499,7 @@ def sketch_files_inverted(
     (inverted.rs:376-405).
 
     With `backend` (the batched device sketcher), assembly inputs are
-    hashed/binned on TPU in chunks of samples (streams are parsed on host
+    hashed/binned on the device in chunks of samples (streams are parsed on host
     threads and released per chunk, so memory stays bounded at 661k scale);
     bin minima are bit-identical to the host loop.
     """

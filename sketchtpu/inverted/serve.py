@@ -1,10 +1,10 @@
 """HTTP query frontend over an inverted index.
 
-The TPU-framework equivalent of the reference's WASM/browser frontend
-(/root/reference/src/fastx_wasm.rs, src/lib.rs:961-1111 —
+The server-side equivalent of the reference's WASM/browser frontend
+(reference src/fastx_wasm.rs, src/lib.rs:961-1111 —
 `SketchlibData::{new, query, get_probs}`): the reference ships the whole
 `.ski` to the browser and sketches the user's uploaded fastx in WASM; a
-TPU deployment keeps the index resident server-side (where the chips
+GPU deployment keeps the index resident server-side (where the cards
 are) and serves the same query surface over HTTP.
 
 Endpoints (JSON responses):

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is a shared-memory rayon pool with a
 serial writer thread (/root/reference/src/sketch/mod.rs:318-391); nothing
-spans hosts. The TPU-native analogue is process-level data parallelism:
+spans hosts. The analogue here is process-level data parallelism:
 each host sketches a contiguous slice of the input list into a local
 `.skd`/`.skm` shard (device-batched on its own chips, no cross-host
 communication — sketching is per-sample independent), and shard files are
@@ -35,9 +35,6 @@ def init_distributed(
     configured (env JAX_COORDINATOR_ADDRESS or explicit args)."""
     import jax
 
-    from ..runtime import apply_platform_env
-
-    apply_platform_env()
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if coordinator:
         if num_processes is None and os.environ.get("JAX_NUM_PROCESSES"):

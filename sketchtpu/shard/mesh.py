@@ -9,8 +9,9 @@ Design (the scaling-book recipe applied to sketch comparison):
   plane-word slice and a psum over the words axis yields exact counts.
   Useful when sketches are very large (s >= 100k bins).
 - Query blocks are broadcast (all-gather on the rows axis); each device
-  emits its (rows_shard x query) tile of the distance matrix. Tiles ride
-  ICI; the host only sees the reduced per-tile outputs.
+  emits its (rows_shard x query) tile of the distance matrix. Collectives
+  run over the device interconnect (NVLink between the cards of one host);
+  the host only sees the reduced per-tile outputs.
 
 Single-host multi-chip uses one jax.sharding.Mesh; multi-host extends the
 same mesh over jax.distributed processes (same code path — the mesh simply
@@ -74,8 +75,8 @@ def sharded_coreacc_step(a_stack, b_stack, s64: int, mesh: Mesh,
     a_stack: (nk, na, W2) u32, sample axis sharded over 'rows' and the word
     axis over 'words'; b_stack: (nk, nb, W2) u32, word-sharded, replicated
     over rows. Per-k samebits partials psum over 'words' (exact int32
-    counts ride ICI), then each device runs the regression chain for its
-    row block. Returns (na, nb, 2) f32, row-sharded.
+    counts cross the interconnect), then each device runs the regression
+    chain for its row block. Returns (na, nb, 2) f32, row-sharded.
 
     c1 (na,) / c2 (nb,) f32 apply the completeness correction — c1 shards
     with the rows, c2 replicates; the correction runs after the psum so it
@@ -148,8 +149,9 @@ def sharded_knn_step(a, b, s64: int, mesh: Mesh, knn: int, n_real: int,
     tc = min(col_tile, b.shape[0])
     comp = c1 is not None
     masked = a_sig is not None
-    # packed-key scan (samebits<<shift | ~col in one int32): ~2x the plain
-    # merge; valid whenever the column count fits the key's column field
+    # packed-key scan (samebits<<shift | ~col in one int32): one top_k and
+    # no index gathers; valid whenever the column count fits the key's
+    # column field
     packed_ok = not comp and b.shape[0] <= (1 << _pack_shift(s64)) - 1
 
     def shard_fn(a_blk, b_blk, c1_blk, c2_all, sig_blk, bsig_all):
@@ -183,7 +185,6 @@ def sharded_knn_step(a, b, s64: int, mesh: Mesh, knn: int, n_real: int,
                 knn=knn,
                 tc=tc,
                 exclude_self=exclude_self,
-                pallas=False,
                 a_sig=sig_blk if masked else None,
                 b_sig=bsig_all if masked else None,
                 masked=masked,
@@ -750,8 +751,8 @@ class ShardedInvertedEngine:
     """Inverted-index queries and the precluster pair count over a device
     mesh (same interface as inverted.device.DeviceInvertedEngine).
 
-    The dense [n x S] sign matrix replicates on every chip (661k x 100
-    i32 = 264 MB, well inside HBM); work shards over the 'rows' mesh axis:
+    The dense [n x S] sign matrix replicates on every device (661k x 100
+    i32 = 264 MB, well inside device memory); work shards over the 'rows' mesh axis:
     queries shard by query row, and the all-pairs any-shared-bin count
     (the reference's stated 90-min/50-GB pain point,
     /root/reference/src/inverted.rs:271-300) gives each chip its own row

@@ -4,7 +4,7 @@ sign extraction -> .skd writing.
 Unlike the reference's rayon + mpsc + serial-writer arrangement
 (src/sketch/mod.rs:283-394), samples are written in deterministic input
 order; ingest/hashing is parallelised over a host thread pool, and the
-hash/bin compute can run on the TPU backend (sketch_jax) in batches.
+hash/bin compute can run on the device backend (sketch_jax) in batches.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ def sketch_files(
     sketches: list[Sketch] = []
     with SketchDataWriter(f"{output_prefix}.skd") as writer:
         if backend is not None and seq_type.kind == "dna":
-            # Device-batched path: parse on host threads, hash/bin on TPU.
+            # Device-batched path: parse on host threads, hash/bin on device.
             # Inputs are processed in chunks with one chunk of parse-ahead,
             # so host memory stays bounded (~2 chunks of decoded streams)
             # and parsing chunk i+1 overlaps device compute on chunk i —
@@ -127,7 +127,7 @@ def sketch_files(
             return sketches
 
         if backend is not None and seq_type.kind in ("aa", "pdb"):
-            # Device-batched AA/3Di path: parse on host, hash/bin on TPU.
+            # Device-batched AA/3Di path: parse on host, hash/bin on device.
             # Chunked like the DNA path so host memory holds only one
             # chunk of decoded streams at a time; progress ticks once per
             # INPUT SAMPLE (the host path's unit), not per emitted sketch

@@ -1,7 +1,7 @@
 """Sketch objects and the per-sample sketching pipeline (host oracle path).
 
 Mirrors /root/reference/src/sketch/mod.rs (Sketch::new, get_signs) with the
-data-parallel hash formulation from hash/nthash_np.py. The batched TPU
+data-parallel hash formulation from hash/nthash_np.py. The batched device
 pipeline lives in sketchcore/sketch_jax.py; it produces bit-identical signs.
 """
 

@@ -1,9 +1,9 @@
 """`sketchtpu warmup` — populate the persistent XLA compile cache for a
 given sketch/distance configuration.
 
-The reference has no compile step; on TPU the first dispatch of each
-program pays a (sometimes multi-minute, via a remote compile service)
-XLA compilation. This command drives the REAL CLI code paths against
+The reference has no compile step; on the GPU the first dispatch of
+each program pays an XLA compilation (up to minutes for the large hash
+programs). This command drives the REAL CLI code paths against
 synthetic inputs sized like the user's workload, so every later
 invocation with the same configuration hits the persistent cache
 (runtime.enable_compilation_cache) and its wall clock is honest.

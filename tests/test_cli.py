@@ -299,7 +299,7 @@ def test_warmup_smoke(tmp_path, monkeypatch):
 
 
 def test_warmup_smoke_extended_modes(tmp_path, monkeypatch):
-    """Round-5 warmup modes (VERDICT r4 task 6): reads (FASTQ bucket
+    """Extended warmup modes: reads (FASTQ bucket
     programs), cross (ref-vs-query dense/knn/coreacc/exact), exact
     (self --exact strip engine), inverted (build/query x 3 types/
     precluster count + knn + core-acc) — each drives the real CLI."""

@@ -59,71 +59,6 @@ def test_coreacc_tile_matches_host():
     np.testing.assert_allclose(acc_d, acc_h, atol=2e-4)
 
 
-import pytest
-
-
-@pytest.mark.parametrize("group", [1, 2])
-def test_coreacc_pallas_matches_xla_tile(group, monkeypatch):
-    """The fused multi-k Pallas kernel (interpret mode on CPU) must agree
-    exactly with the XLA coreacc_tile path on identical inputs, including
-    degenerate pairs (identical sketches) and no-fit pairs (all-random).
-    group=2 exercises the G>1 grouped cg-loop / group-major padded relayout
-    path (reachable only via SKETCHTPU_COREACC_GROUP)."""
-    from sketchtpu.dist import coreacc_pallas as cp_mod
-    from sketchtpu.dist.coreacc_pallas import chunk_major, coreacc_pallas
-
-    monkeypatch.setenv("SKETCHTPU_COREACC_GROUP", str(group))
-    cp_mod._pick_group.cache_clear()
-    try:
-        _run_pallas_vs_xla_case(chunk_major, coreacc_pallas)
-    finally:
-        cp_mod._pick_group.cache_clear()
-
-
-@pytest.mark.parametrize("bad", ["0", "-1", "3", "999"])
-def test_coreacc_group_override_rejected(bad, monkeypatch):
-    """Invalid SKETCHTPU_COREACC_GROUP values (zero, negative, non-divisor,
-    over-budget) fall back to G=1 with a warning instead of crashing."""
-    from sketchtpu.dist import coreacc_pallas as cp_mod
-
-    monkeypatch.setenv("SKETCHTPU_COREACC_GROUP", bad)
-    cp_mod._pick_group.cache_clear()
-    try:
-        assert cp_mod._pick_group(4, 4) == 1
-    finally:
-        cp_mod._pick_group.cache_clear()
-
-
-def _run_pallas_vs_xla_case(chunk_major, coreacc_pallas):
-    # s64=4 so with G=2 the kernel runs BOTH a grouped cg loop and >1
-    # group grid steps (covering the cross-step scratch accumulation)
-    rng = np.random.default_rng(1)
-    s64 = 4
-    w2 = s64 * 14 * 2
-    kmers = (17, 21, 25, 29)
-    nk = len(kmers)
-    n = 16
-    base = rng.integers(0, 2**32, (n, w2), dtype=np.uint32)
-    stack = np.empty((nk, n, w2), dtype=np.uint32)
-    for ki in range(nk):
-        mask = (rng.random((n, w2)) < 0.05 * ki).astype(np.uint32) * rng.integers(
-            0, 2**32, (n, w2), dtype=np.uint32
-        )
-        stack[ki] = base ^ mask
-    stack[:, -1] = stack[:, 0]  # identical pair
-    ref = np.asarray(
-        coreacc_tile(jnp.asarray(stack), jnp.asarray(stack), s64, kmers, 128)
-    )
-    a = np.asarray(chunk_major(jnp.asarray(stack), s64))
-    got = np.asarray(
-        coreacc_pallas(
-            jnp.asarray(a), jnp.asarray(a.T), s64, kmers, 128, ti=8, tj=8,
-            interpret=True,
-        )
-    )
-    np.testing.assert_allclose(got, ref, atol=1e-6)
-
-
 def test_coreacc_tile_completeness_matches_host():
     """Completeness-corrected core/accessory on device: the per-k Jaccard
     correction (jaccard.rs:36-57) is applied before the regression, same
@@ -206,146 +141,6 @@ def test_dense_engine_completeness_matches_host():
     out = io.StringIO()
     names = [ms.sketch_name(i) for i in range(20)]
     eng.stream_self_dense(out, names)
-    lines = out.getvalue().strip().split("\n")
-    assert len(lines) == host.shape[0]
-    got = np.array(
-        [[float(x) for x in ln.split("\t")[2:]] for ln in lines]
-    )
-    np.testing.assert_allclose(got, host, atol=2e-4)
-
-
-def test_coreacc_pallas_completeness_matches_xla(
-):
-    """Completeness variant of the fused Pallas kernel (interpret mode)
-    vs the corrected XLA tile — identical f32 math."""
-    from sketchtpu.dist.coreacc_pallas import chunk_major, coreacc_pallas
-
-    rng = np.random.default_rng(17)
-    s64 = 4
-    w2 = s64 * 14 * 2
-    kmers = (17, 21, 25)
-    nk = len(kmers)
-    na, nb = 8, 16
-    base = rng.integers(0, 2**32, (1, w2), dtype=np.uint32)
-    keep = np.array([0.95, 0.85, 0.7])[:, None, None]
-    a = np.where(
-        rng.random((nk, na, w2)) < keep,
-        base,
-        rng.integers(0, 2**32, (nk, na, w2), dtype=np.uint32),
-    ).astype(np.uint32)
-    b = np.where(
-        rng.random((nk, nb, w2)) < keep,
-        base,
-        rng.integers(0, 2**32, (nk, nb, w2), dtype=np.uint32),
-    ).astype(np.uint32)
-    c1 = rng.uniform(0.7, 1.0, na).astype(np.float32)
-    c2 = rng.uniform(0.7, 1.0, nb).astype(np.float32)
-
-    want = np.asarray(
-        coreacc_tile(
-            jnp.asarray(a), jnp.asarray(b), s64, kmers, s64 * 64,
-            c1=jnp.asarray(c1), c2=jnp.asarray(c2), cutoff=0.64,
-        )
-    )
-    a_cm = chunk_major(jnp.asarray(a), s64)
-    bt = jnp.transpose(chunk_major(jnp.asarray(b), s64))
-    got = np.asarray(
-        coreacc_pallas(
-            a_cm, bt, s64, kmers, s64 * 64, ti=na, tj=nb, interpret=True,
-            c1=jnp.asarray(c1), c2=jnp.asarray(c2), cutoff=0.64,
-        )
-    )
-    np.testing.assert_allclose(got, want, atol=1e-6)
-
-
-def _force_pallas_interpret(monkeypatch):
-    """Route engine Pallas-tile calls through interpret mode (CPU CI)."""
-    import functools
-
-    from sketchtpu.dist import coreacc_pallas as cp_mod
-
-    real = cp_mod.coreacc_pallas
-    monkeypatch.setattr(
-        cp_mod, "coreacc_pallas", functools.partial(real, interpret=True)
-    )
-    monkeypatch.setenv("SKETCHTPU_COREACC_KERNEL", "pallas")
-
-
-def test_dense_engine_completeness_pallas_matches_host(monkeypatch):
-    """Corrected dense runs use the fused Pallas tile by default on TPU
-    (validated compiled on-chip; interpret mode here)."""
-    import io
-    import sys
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).parent))
-    from test_knn_device import _fake_ms
-
-    from sketchtpu.dist import api
-    from sketchtpu.dist.coreacc_jax import DeviceCoreAccEngine
-
-    _force_pallas_interpret(monkeypatch)
-    ms = _fake_ms(n=20, nk=4, kmers=(17, 21, 25, 29), seed=8)
-    rng = np.random.default_rng(9)
-    comp = rng.uniform(0.7, 1.0, 20)
-    dist_type = api.set_k(ms, None, False)
-    host = api.self_dists_all(ms, dist_type, completeness_vec=comp)
-    eng = DeviceCoreAccEngine(ms, tile=8, completeness_vec=comp)
-    assert eng._use_pallas
-    out = io.StringIO()
-    names = [ms.sketch_name(i) for i in range(20)]
-    eng.stream_self_dense(out, names)
-    lines = out.getvalue().strip().split("\n")
-    assert len(lines) == host.shape[0]
-    got = np.array(
-        [[float(x) for x in ln.split("\t")[2:]] for ln in lines]
-    )
-    np.testing.assert_allclose(got, host, atol=2e-4)
-
-
-def test_cross_engine_completeness_pallas_matches_host(monkeypatch):
-    import io
-    import sys
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).parent))
-    from test_knn_device import _fake_ms
-
-    from sketchtpu.dist import api
-    from sketchtpu.dist.coreacc_jax import DeviceCoreAccEngine
-
-    _force_pallas_interpret(monkeypatch)
-    # split one correlated family into ref/query: unrelated random pairs
-    # have flat Jaccard-vs-k profiles whose fitted slope straddles the
-    # reference's beta==0 discontinuity (see BENCHMARKS.md), which is not
-    # what this test is about
-    import copy
-
-    family = _fake_ms(n=29, nk=4, kmers=(17, 21, 25, 29), seed=21)
-    nk, w = 4, family.kmer_stride
-    mat = family.sketch_bins.reshape(29, nk * w)
-    ms = copy.copy(family)
-    ms.sketch_metadata = family.sketch_metadata[:20]
-    ms.sketch_bins = np.ascontiguousarray(mat[:20]).reshape(-1)
-    qms = copy.copy(family)
-    qms.sketch_metadata = family.sketch_metadata[20:]
-    qms.sketch_bins = np.ascontiguousarray(mat[20:]).reshape(-1)
-    rng = np.random.default_rng(23)
-    rcomp = rng.uniform(0.7, 1.0, 20)
-    qcomp = rng.uniform(0.7, 1.0, 9)
-    dist_type = api.set_k(ms, None, False)
-    host = api.cross_dists_all(
-        ms, qms, dist_type, ref_completeness_vec=rcomp,
-        query_completeness_vec=qcomp,
-    )
-    names = [ms.sketch_name(i) for i in range(20)]
-    qnames = [qms.sketch_name(i) for i in range(9)]
-    eng = DeviceCoreAccEngine(ms, tile=8)
-    assert eng._use_pallas
-    out = io.StringIO()
-    eng.stream_cross_dense(
-        out, names, qnames, qms, rcomp=rcomp, qcomp=qcomp, cutoff=0.64
-    )
     lines = out.getvalue().strip().split("\n")
     assert len(lines) == host.shape[0]
     got = np.array(
@@ -450,50 +245,3 @@ def test_coreacc_exact_stream_cross_byte_identical_to_host():
             assert dev_out.getvalue() == host_out.getvalue(), (
                 f"comp={rc is not None} rr={rr}"
             )
-
-
-def test_coreacc_pallas_tri_skip_matches_full():
-    """tri=True (self-dense triangle skip) must reproduce the full kernel
-    exactly on every pair with col > row and write zeros on fully-skipped
-    blocks — across row0 offsets that put the diagonal inside, before,
-    and after the tile."""
-    import jax
-    import jax.numpy as jnp
-
-    from sketchtpu.dist.coreacc_pallas import chunk_major, coreacc_pallas
-
-    rng = np.random.default_rng(21)
-    s64 = 4
-    w2 = s64 * 28
-    kmers = (17, 21, 25)
-    na, nb, ti, tj = 16, 32, 8, 8
-    stack = rng.integers(0, 2**32, (len(kmers), nb, w2), dtype=np.uint32)
-    cm = chunk_major(jnp.asarray(stack), s64)
-    bt = jnp.transpose(cm)
-    for row0 in (0, 8, 16, 40):
-        a = cm[:na] if row0 == 0 else cm[nb - na :]
-        full = np.asarray(
-            coreacc_pallas(
-                a, bt, s64, kmers, 256, ti=ti, tj=tj, interpret=True
-            )
-        )
-        tri = np.asarray(
-            coreacc_pallas(
-                a, bt, s64, kmers, 256, ti=ti, tj=tj, interpret=True,
-                tri=True, row0=np.int32(row0),
-            )
-        )
-        rows = row0 + np.arange(na)[:, None]
-        cols = np.arange(nb)[None, :]
-        upper = cols > rows
-        np.testing.assert_array_equal(
-            tri[upper], full[upper], err_msg=f"row0={row0}"
-        )
-        # fully-skipped blocks come back zeroed (never read, but pinned)
-        bi, bj = np.meshgrid(
-            np.arange(na // ti), np.arange(nb // tj), indexing="ij"
-        )
-        skipped = (bj + 1) * tj - 1 <= row0 + bi * ti
-        for i, j in zip(*np.nonzero(skipped)):
-            blk = tri[i * ti : (i + 1) * ti, j * tj : (j + 1) * tj]
-            np.testing.assert_array_equal(blk, 0.0)

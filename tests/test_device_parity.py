@@ -1,7 +1,7 @@
 """Device (JAX) sketching path must be bit-identical to the host oracle.
 
-Runs on the CPU backend in tests (conftest forces JAX_PLATFORMS=cpu); the
-same code path runs on TPU.
+Runs on the CPU backend in tests (conftest defaults JAX_PLATFORMS to cpu);
+the same code path runs on the GPU.
 """
 
 import numpy as np
@@ -74,8 +74,7 @@ import jax.numpy as jnp  # noqa: E402
 
 def _synthetic_streams(n_genomes=3, length=30000, with_breaks=True, seed=3):
     """Small random genomes (fast enough for the single-core CPU backend in
-    tests; the same path was verified bit-exact on real TPU with the full
-    fixture genomes)."""
+    tests)."""
     from sketchtpu.ingest.fastx import DnaStream
 
     rng = np.random.default_rng(seed)

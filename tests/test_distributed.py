@@ -159,14 +159,14 @@ def _run_dist(tmp_path, monkeypatch, backend, dist_args, tag):
     return open(single, "rb").read(), parts
 
 
-@pytest.mark.parametrize("backend", ["host", "tpu"])
+@pytest.mark.parametrize("backend", ["host", "device"])
 def test_multiprocess_self_dense_coreacc(tmp_path, monkeypatch, backend):
     db = _make_db(tmp_path, monkeypatch, "db", 9, 1)
     single, parts = _run_dist(tmp_path, monkeypatch, backend, [db], "ca")
     assert parts == single and single.count(b"\n") == 9 * 8 // 2
 
 
-@pytest.mark.parametrize("backend", ["host", "tpu"])
+@pytest.mark.parametrize("backend", ["host", "device"])
 def test_multiprocess_self_dense_jaccard(tmp_path, monkeypatch, backend):
     db = _make_db(tmp_path, monkeypatch, "db", 9, 2)
     single, parts = _run_dist(
@@ -175,7 +175,7 @@ def test_multiprocess_self_dense_jaccard(tmp_path, monkeypatch, backend):
     assert parts == single and single.count(b"\n") == 9 * 8 // 2
 
 
-@pytest.mark.parametrize("backend", ["host", "tpu"])
+@pytest.mark.parametrize("backend", ["host", "device"])
 def test_multiprocess_self_knn(tmp_path, monkeypatch, backend):
     db = _make_db(tmp_path, monkeypatch, "db", 9, 3)
     single, parts = _run_dist(
@@ -184,7 +184,7 @@ def test_multiprocess_self_knn(tmp_path, monkeypatch, backend):
     assert parts == single
 
 
-@pytest.mark.parametrize("backend", ["host", "tpu"])
+@pytest.mark.parametrize("backend", ["host", "device"])
 def test_multiprocess_self_knn_coreacc(tmp_path, monkeypatch, backend):
     db = _make_db(tmp_path, monkeypatch, "db", 9, 4)
     single, parts = _run_dist(
@@ -193,7 +193,7 @@ def test_multiprocess_self_knn_coreacc(tmp_path, monkeypatch, backend):
     assert parts == single
 
 
-@pytest.mark.parametrize("backend", ["host", "tpu"])
+@pytest.mark.parametrize("backend", ["host", "device"])
 def test_multiprocess_cross_dense(tmp_path, monkeypatch, backend):
     db = _make_db(tmp_path, monkeypatch, "db", 7, 5)
     qdb = _make_db(tmp_path, monkeypatch, "qdb", 5, 6)
@@ -203,7 +203,7 @@ def test_multiprocess_cross_dense(tmp_path, monkeypatch, backend):
     assert parts == single and single.count(b"\n") == 7 * 5
 
 
-@pytest.mark.parametrize("backend", ["host", "tpu"])
+@pytest.mark.parametrize("backend", ["host", "device"])
 def test_multiprocess_cross_knn(tmp_path, monkeypatch, backend):
     db = _make_db(tmp_path, monkeypatch, "db", 7, 7)
     qdb = _make_db(tmp_path, monkeypatch, "qdb", 5, 8)
@@ -226,7 +226,7 @@ def test_triangle_row_slice_covers():
             assert covered == list(range(n)), (n, p)
 
 
-@pytest.mark.parametrize("backend", ["host", "tpu"])
+@pytest.mark.parametrize("backend", ["host", "device"])
 @pytest.mark.parametrize("mode", [[], ["-k", "17"], ["--knn", "2"],
                                   ["-k", "17", "--knn", "2"]])
 def test_multiprocess_more_ranks_than_rows(tmp_path, monkeypatch, backend,

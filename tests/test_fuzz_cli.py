@@ -1,5 +1,5 @@
 """End-to-end CLI fuzz: random genomes driven through the real CLI under
-each backend (host / TPU) and codec path (native / pure-Python). Every
+each backend (host / device) and codec path (native / pure-Python). Every
 artifact (.skd/.skm/.ski/.skq) and every stdout surface must agree
 byte-for-byte across backends — the CLI-level analogue of
 test_fuzz_parity (which fuzzes the backends directly)."""
@@ -60,7 +60,7 @@ def test_cli_backend_ab(seed, tmp_path, monkeypatch, capsys):
     sketch_size = int(rng.choice([100, 500]))
 
     outs = {}
-    for be in ("host", "tpu"):
+    for be in ("host", "device"):
         monkeypatch.setenv("SKETCHTPU_BACKEND", be)
         _run(capsys, "sketch", "-f", rfile, "-o", f"db_{be}", "-k", kstr,
              "-s", str(sketch_size), "--quiet")
@@ -78,15 +78,15 @@ def test_cli_backend_ab(seed, tmp_path, monkeypatch, capsys):
         outs[be] = (dense, knn, ani)
 
     assert (tmp_path / "db_host.skd").read_bytes() == (
-        tmp_path / "db_tpu.skd"
+        tmp_path / "db_device.skd"
     ).read_bytes(), seed
     assert (tmp_path / "db_host.skm").read_bytes() == (
-        tmp_path / "db_tpu.skm"
+        tmp_path / "db_device.skm"
     ).read_bytes(), seed
-    assert outs["host"][0] == outs["tpu"][0], (seed, "dense")
+    assert outs["host"][0] == outs["device"][0], (seed, "dense")
     # kNN: pair sets identical; distances equal (both exact at this scale)
-    assert outs["host"][1] == outs["tpu"][1], (seed, "knn")
-    assert outs["host"][2] == outs["tpu"][2], (seed, "ani")
+    assert outs["host"][1] == outs["device"][1], (seed, "knn")
+    assert outs["host"][2] == outs["device"][2], (seed, "ani")
 
 
 @pytest.mark.parametrize("seed", range(2))
@@ -98,7 +98,7 @@ def test_cli_inverted_backend_ab(seed, tmp_path, monkeypatch, capsys):
     ssize = int(rng.choice([50, 100]))
 
     outs = {}
-    for be in ("host", "tpu"):
+    for be in ("host", "device"):
         monkeypatch.setenv("SKETCHTPU_BACKEND", be)
         _run(capsys, "inverted", "build", "-f", rfile, "-o", f"inv_{be}",
              "-s", str(ssize), "-k", str(k), "--write-skq", "--quiet")
@@ -114,13 +114,13 @@ def test_cli_inverted_backend_ab(seed, tmp_path, monkeypatch, capsys):
         outs[be] = (q, pc, pk)
 
     assert (tmp_path / "inv_host.ski").read_bytes() == (
-        tmp_path / "inv_tpu.ski"
+        tmp_path / "inv_device.ski"
     ).read_bytes(), seed
     assert (tmp_path / "inv_host.skq").read_bytes() == (
-        tmp_path / "inv_tpu.skq"
+        tmp_path / "inv_device.skq"
     ).read_bytes(), seed
     for i, surface in enumerate(("query", "precluster-count", "precluster-knn")):
-        assert outs["host"][i] == outs["tpu"][i], (seed, surface)
+        assert outs["host"][i] == outs["device"][i], (seed, surface)
 
 
 def test_cli_no_native_ab(tmp_path, monkeypatch, capsys):

@@ -137,7 +137,7 @@ def test_multiprocess_concat_matches_fuzz(wd, seed, monkeypatch):
     run("sketch", "--k-vals", "13,17,21", "-s", "100", *genomes, "-o",
         "db", "--quiet")
 
-    backend = ["host", "tpu"][int(rng.integers(0, 2))]
+    backend = ["host", "device"][int(rng.integers(0, 2))]
     monkeypatch.setenv("SKETCHTPU_BACKEND", backend)
     mode = [
         [],                       # dense coreacc
@@ -189,7 +189,7 @@ def test_multiprocess_precluster_concat(wd, seed, retain, monkeypatch):
     run("sketch", "--k-vals", "17", "-s", "100", *genomes, "-o", "db",
         "--quiet")
 
-    backend = ["host", "tpu"][int(rng.integers(0, 2))]
+    backend = ["host", "device"][int(rng.integers(0, 2))]
     monkeypatch.setenv("SKETCHTPU_BACKEND", backend)
     extra = ["--retain-unmatched", retain] if retain else []
     run("inverted", "precluster", "--knn", "2", "--skd", "db", "inv.ski",
@@ -216,7 +216,7 @@ def test_multiprocess_inverted_query_concat(wd, qtype, monkeypatch):
     genomes = _related_fastas(wd, rng, 8)
     run("inverted", "build", "-o", "inv", "-k", "17", "-s", "12",
         *genomes, "--quiet")
-    monkeypatch.setenv("SKETCHTPU_BACKEND", "tpu")
+    monkeypatch.setenv("SKETCHTPU_BACKEND", "device")
     run("inverted", "query", "inv.ski", *genomes, "--query-type", qtype,
         "-o", "single.txt", "--quiet")
     monkeypatch.setenv("SKETCHTPU_BACKEND", "host")
@@ -230,7 +230,7 @@ def test_multiprocess_inverted_query_concat(wd, qtype, monkeypatch):
     assert parts == open("single.txt", "rb").read()
 
 
-@pytest.mark.parametrize("backend", ["host", "tpu"])
+@pytest.mark.parametrize("backend", ["host", "device"])
 def test_multiprocess_precluster_count_partials(wd, backend, monkeypatch,
                                                 capsys):
     """--count with --n-processes: rank partial counts sum to the
@@ -269,16 +269,16 @@ def test_precluster_coreacc_cli(wd, retain, monkeypatch):
 
     extra = ["--retain-unmatched", retain] if retain else []
     outs = {}
-    for be in ("host", "tpu"):
+    for be in ("host", "device"):
         monkeypatch.setenv("SKETCHTPU_BACKEND", be)
         run("inverted", "precluster", "--knn", "3", "--skd", "db",
             "inv.ski", "--core-acc", *extra, "-o", f"ca_{be}.txt",
             "--quiet")
         outs[be] = _parse_pairs(wd / f"ca_{be}.txt")
-    assert outs["host"].keys() == outs["tpu"].keys()
+    assert outs["host"].keys() == outs["device"].keys()
     assert outs["host"], "expected at least one preclustered pair"
     for pair, hv in outs["host"].items():
-        tv = outs["tpu"][pair]
+        tv = outs["device"][pair]
         np.testing.assert_allclose(tv, hv, atol=2e-4)
 
     # multi-process rank concatenation (host backend)
@@ -308,14 +308,14 @@ def test_completeness_coreacc_device_cli(wd, monkeypatch):
 
     for mode in (["--knn", "3"], []):
         res = {}
-        for be in ("host", "tpu"):
+        for be in ("host", "device"):
             monkeypatch.setenv("SKETCHTPU_BACKEND", be)
             run("dist", "db", *mode, "--ref-completeness-file", "comp.tsv",
                 "-o", f"d_{be}.txt", "--quiet")
             res[be] = _parse_pairs(wd / f"d_{be}.txt")
-        assert res["host"].keys() == res["tpu"].keys(), mode
+        assert res["host"].keys() == res["device"].keys(), mode
         for pair, hv in res["host"].items():
-            np.testing.assert_allclose(res["tpu"][pair], hv, atol=2e-4)
+            np.testing.assert_allclose(res["device"][pair], hv, atol=2e-4)
 
 
 def test_cross_dense_coreacc_device_cli(wd, monkeypatch):
@@ -339,13 +339,13 @@ def test_cross_dense_coreacc_device_cli(wd, monkeypatch):
                       "--query-completeness-file", "qcomp.tsv"],
                  ["--ref-completeness-file", "rcomp.tsv"]):
         res = {}
-        for be in ("host", "tpu"):
+        for be in ("host", "device"):
             monkeypatch.setenv("SKETCHTPU_BACKEND", be)
             run("dist", "dbr", "dbq", *comp, "-o", f"x_{be}.txt", "--quiet")
             res[be] = _parse_pairs(wd / f"x_{be}.txt")
-        assert res["host"].keys() == res["tpu"].keys(), comp
+        assert res["host"].keys() == res["device"].keys(), comp
         for pair, hv in res["host"].items():
-            np.testing.assert_allclose(res["tpu"][pair], hv, atol=2e-4)
+            np.testing.assert_allclose(res["device"][pair], hv, atol=2e-4)
 
 
 def test_multiprocess_inverted_build(wd, monkeypatch):
@@ -420,10 +420,10 @@ def test_completeness_singlek_knn_device_cli(wd, monkeypatch):
          "--ref-completeness-file", "comp.tsv"],
     ):
         res = {}
-        for be in ("host", "tpu"):
+        for be in ("host", "device"):
             monkeypatch.setenv("SKETCHTPU_BACKEND", be)
             run(*cmd, "-o", f"o_{be}.txt", "--quiet")
             res[be] = _parse_pairs(wd / f"o_{be}.txt")
-        assert res["host"].keys() == res["tpu"].keys(), cmd
+        assert res["host"].keys() == res["device"].keys(), cmd
         for pair, hv in res["host"].items():
-            np.testing.assert_allclose(res["tpu"][pair], hv, atol=1e-6)
+            np.testing.assert_allclose(res["device"][pair], hv, atol=1e-6)

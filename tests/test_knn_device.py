@@ -360,36 +360,6 @@ def test_precluster_singlek_completeness_matches_host():
             )
 
 
-def test_self_knn_coreacc_completeness_pallas_close_to_host(monkeypatch):
-    """Corrected core/acc kNN now defaults to the fused Pallas tile
-    (interpret mode on CPU; compiled variant validated on-chip)."""
-    import functools
-
-    from sketchtpu.dist import coreacc_pallas as cp_mod
-
-    monkeypatch.setattr(
-        cp_mod,
-        "coreacc_pallas",
-        functools.partial(cp_mod.coreacc_pallas, interpret=True),
-    )
-    monkeypatch.setenv("SKETCHTPU_COREACC_KERNEL", "pallas")
-    ms = _fake_ms(n=30, nk=4, kmers=(17, 21, 25, 29), seed=12)
-    rng = np.random.default_rng(13)
-    comp = rng.uniform(0.7, 1.0, 30)
-    dist_type = api.set_k(ms, None, False)
-    knn = 4
-    host = api.self_dists_knn(ms, knn, dist_type, completeness_vec=comp)
-    eng = DeviceKnnEngine(ms, row_tile=8, col_tile=16)
-    assert eng._use_pallas_ca
-    dev = eng.self_knn_coreacc(knn, completeness_vec=comp)
-    for dr, hr in zip(dev, host):
-        np.testing.assert_allclose(
-            sorted(c for _, c, _ in dr),
-            sorted(c for _, c, _ in hr),
-            atol=2e-4,
-        )
-
-
 def test_grouped_merge_path_matches_host():
     """Engine shapes that trigger the two-stage grouped top-k merge
     (col_tile/8 groups > knn — see _tile_topk_reduce) must match the host

@@ -6,15 +6,13 @@ import numpy as np
 
 import sketchtpu as st
 
-from conftest import REF_IN
 
-
-def test_sketch_load_dist_roundtrip(tmp_path):
+def test_sketch_load_dist_roundtrip(tmp_path, genomes):
     inputs = st.get_input_list(
         None,
         [
-            str(REF_IN / "R6.fa.gz"),
-            str(REF_IN / "TIGR4.fa.gz"),
+            str(genomes["R6"]),
+            str(genomes["TIGR4"]),
         ],
     )
     prefix = str(tmp_path / "db")
@@ -47,7 +45,7 @@ def test_all_exports_resolve():
         assert getattr(st, name, None) is not None, name
 
 
-def test_inverted_query_probs():
+def test_inverted_query_probs(genomes):
     """Python analogue of the WASM frontend's SketchlibData::{query,
     get_probs} (lib.rs:1019-1111): top-N Jaccard estimates with labels."""
     from sketchtpu.inverted.index import Inverted
@@ -55,9 +53,9 @@ def test_inverted_query_probs():
     inputs = st.get_input_list(
         None,
         [
-            str(REF_IN / "R6.fa.gz"),
-            str(REF_IN / "TIGR4.fa.gz"),
-            str(REF_IN / "14412_3#82.contigs_velvet.fa.gz"),
+            str(genomes["R6"]),
+            str(genomes["TIGR4"]),
+            str(genomes["s82"]),
         ],
     )
     inv = Inverted.build(

@@ -138,7 +138,7 @@ def test_big_group_exact_fallback_split():
 
 def test_single_k_fast_route_small_genomes():
     """Single-k requests on small genomes route through the fast kernel
-    (larger groups, bench/probe_singlek.py) and stay bit-exact; large
+    (larger groups) and stay bit-exact; large
     single-k genomes stay on the exact kernel."""
     rng = np.random.default_rng(5)
     streams = [

@@ -1,149 +1,139 @@
-"""Pallas kernel parity (interpret mode on CPU; the compiled kernel was
-verified on real TPU v5e hardware)."""
+"""The Triton-route samebits kernel (interpret mode on the CPU; its compiled
+form runs in the `gpu` tests and in chip_smoke.py), and the packed kNN scan
+that every distance engine's tile feeds."""
+
+import functools
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 import pytest
 
 from sketchtpu.dist.jaccard_np import samebits_matrix
-from sketchtpu.dist.pallas_kernels import (
-    chunk_group_major,
-    samebits_pallas,
-    samebits_pallas_chunked,
+from sketchtpu.dist.samebits_triton import (
+    samebits_tile_triton,
+    samebits_triton,
+    word_major,
 )
+from sketchtpu.synth import clustered_sketch_planes
 
 
-def test_samebits_pallas_interpret():
-    s64 = 16
-    w2 = s64 * 14 * 2
-    rng = np.random.default_rng(0)
-    a_np = rng.integers(0, 2**32, (256, w2), dtype=np.uint32)
-    b_np = rng.integers(0, 2**32, (512, w2), dtype=np.uint32)
-    got = np.asarray(
-        samebits_pallas(
-            jnp.asarray(a_np),
-            jnp.asarray(np.ascontiguousarray(b_np.T)),
-            s64,
-            ti=256,
-            tj=512,
-            interpret=True,
-        )
-    )
-    want = samebits_matrix(a_np.view(np.uint64), b_np.view(np.uint64))
-    assert np.array_equal(got, want)
+def _planes(n, sketch_size, seed):
+    """(n, W2) u32 planes of related sketches (samebits spans a range)."""
+    rows = np.concatenate(
+        list(clustered_sketch_planes(n, [17], sketch_size, seed, batch=64))
+    )[:, 0]
+    return np.ascontiguousarray(rows).view(np.uint32)
 
 
-def test_samebits_pallas_chunked_interpret():
-    s64 = 16
-    w2 = s64 * 14 * 2
-    rng = np.random.default_rng(1)
-    a_np = rng.integers(0, 2**32, (256, w2), dtype=np.uint32)
-    b_np = rng.integers(0, 2**32, (1024, w2), dtype=np.uint32)
-    a_cm = chunk_group_major(jnp.asarray(a_np), s64)
-    b_cm = chunk_group_major(jnp.asarray(b_np), s64)
-    got = np.asarray(
-        samebits_pallas_chunked(
-            a_cm,
-            jnp.transpose(b_cm),
-            s64,
-            ti=256,
-            tj=1024,
-            interpret=True,
-        )
-    )
-    want = samebits_matrix(a_np.view(np.uint64), b_np.view(np.uint64))
-    assert np.array_equal(got, want)
-
-
-def test_samebits_strip_fused_interpret():
-    """The whole-strip fused kernel (round 5, now the production
-    _samebits_strip_pallas body) must be bit-exact vs the XLA samebits
-    tile, write int16 in strip layout, and — with tri=True at any row0 —
-    preserve every upper-triangle (col > row) entry while zeroing blocks
-    wholly at-or-below the diagonal at (512, 512) granularity."""
-    from sketchtpu.dist.pallas_kernels import samebits_strip_fused
-
-    s64 = 4
-    w2 = s64 * 14 * 2
-    rng = np.random.default_rng(5)
-    n, blk = 1024, 512
-    mat = rng.integers(0, 2**32, (n, w2), dtype=np.uint32)
-    cm = chunk_group_major(jnp.asarray(mat), s64)
-    cm_t = jnp.transpose(cm)
-    want = samebits_matrix(
-        mat[:blk].view(np.uint64), mat.view(np.uint64)
-    ).astype(np.int16)
-    got = np.asarray(
-        samebits_strip_fused(cm[:blk], cm_t, s64, interpret=True)
-    )
-    assert got.dtype == np.int16
+@pytest.mark.parametrize("sketch_size", [256, 1000, 180])  # s64 = 4, 16, 3
+@pytest.mark.parametrize("na,nb", [(128, 64), (100, 37)])
+def test_samebits_triton_matches_samebits_matrix(sketch_size, na, nb):
+    """Row-major wrapper: any na/nb (padded to the blocks), any s64 (odd
+    ones too: no lane-padding rule)."""
+    a = _planes(na, sketch_size, 1)
+    b = np.ascontiguousarray(_planes(nb, sketch_size, 1)[::-1])
+    s64 = a.shape[1] // 28
+    got = np.asarray(samebits_tile_triton(
+        jnp.asarray(a), jnp.asarray(b), s64, interpret=True))
+    want = samebits_matrix(a.view(np.uint64), b.view(np.uint64))
+    assert want.max() > 0
     np.testing.assert_array_equal(got, want)
-    for row0 in (0, 512):
-        tri = np.asarray(
-            samebits_strip_fused(
-                cm[:blk], cm_t, s64, row0=jnp.int32(row0), tri=True,
-                interpret=True,
-            )
-        )
-        rows = row0 + np.arange(blk)[:, None]
-        cols = np.arange(n)[None, :]
-        upper = cols > rows
-        np.testing.assert_array_equal(tri[upper], want[upper])
-        for i in range(blk // 512):
-            for j in range(n // 512):
-                if (j + 1) * 512 - 1 <= row0 + i * 512:
-                    np.testing.assert_array_equal(
-                        tri[i * 512:(i + 1) * 512, j * 512:(j + 1) * 512],
-                        0,
-                    )
 
 
-def test_knn_scan_block_pallas_matches_xla_interpret():
-    """The Pallas-tile kNN scan must select identically to the XLA scan
-    (same valid-mask / group-shrink / top-k merge around the tile)."""
-    from sketchtpu.dist.knn_jax import (
-        _knn_scan_block,
-        _knn_scan_block_pallas,
-    )
-    from sketchtpu.dist.pallas_kernels import chunk_group_major
+@pytest.mark.parametrize("row0", [0, 64, 128, 320])
+def test_samebits_triton_tri_int16_strip(row0):
+    """tri=True with an int16 strip: every upper-triangle (col > row) entry
+    exact, every (BM, BN) block wholly at or below the diagonal zero."""
+    s64, bm, bn, na, nb = 4, 32, 32, 64, 384
+    mat = _planes(nb, 256, 3)
+    m_t = word_major(jnp.asarray(mat))
+    r0 = row0
+    got = np.asarray(samebits_triton(
+        m_t[:, r0 : r0 + na], m_t, s64, row0=r0, tri=True,
+        out_dtype=jnp.int16, bm=bm, bn=bn, interpret=True))
+    assert got.dtype == np.int16
+    want = samebits_matrix(mat[r0 : r0 + na].view(np.uint64),
+                           mat.view(np.uint64))
+    rows = r0 + np.arange(na)[:, None]
+    cols = np.arange(nb)[None, :]
+    np.testing.assert_array_equal(got[cols > rows], want[cols > rows])
+    bi, bj = np.meshgrid(np.arange(na // bm), np.arange(nb // bn),
+                         indexing="ij")
+    for i, j in zip(*np.nonzero((bj + 1) * bn - 1 <= r0 + bi * bm)):
+        assert not got[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn].any()
 
-    s64 = 4
-    w2 = s64 * 14 * 2
-    rng = np.random.default_rng(2)
-    nb = 512
-    tr = 256
-    knn = 5
-    a_np = rng.integers(0, 2**32, (tr, w2), dtype=np.uint32)
-    b_np = rng.integers(0, 2**32, (nb, w2), dtype=np.uint32)
-    b_np[:tr] = a_np  # rows are a slice of columns: self-exclusion matters
-    sig = np.zeros((tr, 1), np.int32)
-    bsig = np.zeros((nb, 1), np.int32)
-    want_v, want_i = _knn_scan_block(
-        jnp.asarray(a_np), jnp.asarray(b_np), np.int32(0), np.int32(nb - 3),
-        sig, bsig, s64=s64, knn=knn, tc=256, exclude_self=True, masked=False,
-    )
-    got_v, got_i = _knn_scan_block_pallas(
-        chunk_group_major(jnp.asarray(a_np), s64),
-        jnp.transpose(chunk_group_major(jnp.asarray(b_np), s64)),
-        np.int32(0), np.int32(nb - 3),
-        sig, bsig, s64=s64, knn=knn, tc=256, exclude_self=True, masked=False,
-        ti=256, tj=256, interpret=True,
-    )
-    assert np.array_equal(np.asarray(got_v), np.asarray(want_v))
-    assert np.array_equal(np.asarray(got_i), np.asarray(want_i))
+
+def test_samebits_triton_rejects_ragged_blocks():
+    a_t = jnp.zeros((4 * 28, 100), jnp.int32)
+    with pytest.raises(ValueError, match="na % 128"):
+        samebits_triton(a_t, a_t, 4, interpret=True)
+
+
+def test_samebits_tile_dispatch_per_platform(monkeypatch):
+    """_samebits_tile runs the platform's tile: the Triton kernel when the
+    runtime says gpu (interpret mode here), XLA on the CPU; both exact."""
+    from sketchtpu.dist import jaccard_jax
+
+    a = _planes(40, 1000, 4)
+    want = samebits_matrix(a.view(np.uint64), a.view(np.uint64))
+    got_xla = np.asarray(jaccard_jax._samebits_tile(
+        jnp.asarray(a), jnp.asarray(a), 16))
+    monkeypatch.setattr(jaccard_jax, "samebits_kernel", lambda: "triton")
+    monkeypatch.setattr(jaccard_jax, "samebits_tile_triton", functools.partial(
+        samebits_tile_triton, interpret=True))
+    got_tri = np.asarray(jaccard_jax._samebits_tile(
+        jnp.asarray(a), jnp.asarray(a), 16))
+    np.testing.assert_array_equal(got_xla, want)
+    np.testing.assert_array_equal(got_tri, want)
+
+
+@pytest.mark.parametrize("tri,out_dtype", [(False, jnp.int32),
+                                            (True, jnp.int16)])
+def test_samebits_triton_module_verifies_for_cuda(monkeypatch, tri,
+                                                  out_dtype):
+    """Lower the kernel for CUDA here and verify its Triton module, which
+    the card's compiler would otherwise be first to reject (s64 = 157)."""
+    from jax._src.pallas.triton import pallas_call_registration as reg
+
+    lower = reg.lowering.lower_jaxpr_to_triton_module
+    verified = []
+
+    def checked(*args, **kwargs):
+        res = lower(*args, **kwargs)
+        verified.append(res.module.operation.verify())
+        return res
+
+    monkeypatch.setattr(reg.lowering, "lower_jaxpr_to_triton_module", checked)
+    a_t = jax.ShapeDtypeStruct((157 * 28, 256), jnp.int32)
+    jax.jit(lambda x, y, r: samebits_triton(
+        x, y, 157, row0=r, tri=tri, out_dtype=out_dtype)).trace(
+        a_t, a_t, jnp.int32(0)).lower(lowering_platforms=("cuda",))
+    assert verified == [True]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sketch_size", [1000, 10000])
+def test_samebits_triton_compiled_on_gpu(gpu, sketch_size):
+    """The compiled kernel at a real width (s64 = 16 and 157)."""
+    a = _planes(1024, sketch_size, 5)
+    s64 = a.shape[1] // 28
+    got = np.asarray(samebits_tile_triton(jnp.asarray(a), jnp.asarray(a), s64))
+    rows = np.arange(0, 1024, 37)
+    want = samebits_matrix(a[rows].view(np.uint64), a.view(np.uint64))
+    np.testing.assert_array_equal(got[rows], want)
 
 
 def test_knn_scan_block_packed_matches_reference_scan():
     """The packed-key fast scan (branch-gated masks, single-top_k merge)
     must select identically — values, indices, tie order — to the original
-    scan, in both its XLA and Pallas tile flavours."""
+    scan."""
     from sketchtpu.dist.knn_jax import (
         _knn_scan_block,
         _knn_scan_block_packed,
     )
-    from sketchtpu.dist.pallas_kernels import chunk_group_major
 
     s64 = 4
     w2 = s64 * 14 * 2
@@ -168,16 +158,7 @@ def test_knn_scan_block_packed_matches_reference_scan():
         got_v, got_i = _knn_scan_block_packed(
             jnp.asarray(a_np), jnp.asarray(b_np), np.int32(0),
             np.int32(nb_real),
-            s64=s64, knn=knn, tc=256, exclude_self=True, pallas=False,
-        )
-        assert np.array_equal(np.asarray(got_v), np.asarray(want_v))
-        assert np.array_equal(np.asarray(got_i), np.asarray(want_i))
-        got_v, got_i = _knn_scan_block_packed(
-            chunk_group_major(jnp.asarray(a_np), s64),
-            jnp.transpose(chunk_group_major(jnp.asarray(b_np), s64)),
-            np.int32(0), np.int32(nb_real),
-            s64=s64, knn=knn, tc=256, exclude_self=True, pallas=True,
-            ti=256, tj=256, interpret=True,
+            s64=s64, knn=knn, tc=256, exclude_self=True,
         )
         assert np.array_equal(np.asarray(got_v), np.asarray(want_v))
         assert np.array_equal(np.asarray(got_i), np.asarray(want_i))
@@ -189,7 +170,6 @@ def test_knn_scan_block_packed_masked_matches_reference_scan():
         _knn_scan_block,
         _knn_scan_block_packed,
     )
-    from sketchtpu.dist.pallas_kernels import chunk_group_major
 
     s64 = 4
     w2 = s64 * 14 * 2
@@ -210,65 +190,9 @@ def test_knn_scan_block_packed_masked_matches_reference_scan():
     )
     got_v, got_i = _knn_scan_block_packed(
         jnp.asarray(a_np), jnp.asarray(b_np), np.int32(0), np.int32(nb - 3),
-        s64=s64, knn=knn, tc=256, exclude_self=True, pallas=False,
+        s64=s64, knn=knn, tc=256, exclude_self=True,
         a_sig=a_sig, b_sig=b_sig, masked=True,
     )
     assert np.array_equal(np.asarray(got_v), np.asarray(want_v))
     assert np.array_equal(np.asarray(got_i), np.asarray(want_i))
-    got_v, got_i = _knn_scan_block_packed(
-        chunk_group_major(jnp.asarray(a_np), s64),
-        jnp.transpose(chunk_group_major(jnp.asarray(b_np), s64)),
-        np.int32(0), np.int32(nb - 3),
-        s64=s64, knn=knn, tc=256, exclude_self=True, pallas=True,
-        a_sig=a_sig, b_sig=b_sig, masked=True,
-        ti=256, tj=256, interpret=True,
-    )
-    assert np.array_equal(np.asarray(got_v), np.asarray(want_v))
-    assert np.array_equal(np.asarray(got_i), np.asarray(want_i))
 
-
-def test_knn_scan_block_comp_pallas_matches_xla_interpret():
-    from sketchtpu.dist.knn_jax import (
-        _knn_scan_block_comp,
-        _knn_scan_block_comp_pallas,
-    )
-    from sketchtpu.dist.pallas_kernels import chunk_group_major
-
-    s64 = 4
-    w2 = s64 * 14 * 2
-    rng = np.random.default_rng(3)
-    nb = 512
-    tr = 256
-    knn = 5
-    a_np = rng.integers(0, 2**32, (tr, w2), dtype=np.uint32)
-    b_np = rng.integers(0, 2**32, (nb, w2), dtype=np.uint32)
-    b_np[:tr] = a_np
-    sig = np.zeros((tr, 1), np.int32)
-    bsig = np.zeros((nb, 1), np.int32)
-    c1 = rng.uniform(0.5, 1.0, tr).astype(np.float32)
-    c2 = rng.uniform(0.5, 1.0, nb).astype(np.float32)
-    args = dict(
-        s64=s64, knn=knn, tc=256, exclude_self=True, masked=False,
-        cutoff=0.64,
-    )
-    want_v, want_i = _knn_scan_block_comp(
-        jnp.asarray(a_np), jnp.asarray(b_np), np.int32(0), np.int32(nb),
-        sig, bsig, jnp.asarray(c1), jnp.asarray(c2), **args,
-    )
-    got_v, got_i = _knn_scan_block_comp_pallas(
-        chunk_group_major(jnp.asarray(a_np), s64),
-        jnp.transpose(chunk_group_major(jnp.asarray(b_np), s64)),
-        np.int32(0), np.int32(nb),
-        sig, bsig, jnp.asarray(c1), jnp.asarray(c2),
-        ti=256, tj=256, interpret=True, **args,
-    )
-    assert np.array_equal(np.asarray(got_v), np.asarray(want_v))
-    assert np.array_equal(np.asarray(got_i), np.asarray(want_i))
-
-
-def test_samebits_pallas_chunked_rejects_ragged_tiles():
-    s64 = 16
-    a = jnp.zeros((100, (s64 // 4) * 128), jnp.uint32)
-    bt = jnp.zeros(((s64 // 4) * 128, 256), jnp.uint32)
-    with pytest.raises(ValueError, match="divisible"):
-        samebits_pallas_chunked(a, bt, s64, ti=256, tj=256, interpret=True)

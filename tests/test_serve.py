@@ -15,17 +15,15 @@ import sketchtpu as st
 from sketchtpu.inverted.index import Inverted
 from sketchtpu.inverted.serve import make_server
 
-from conftest import REF_IN
-
 
 @pytest.fixture(scope="module")
-def inv():
+def inv(genomes):
     inputs = st.get_input_list(
         None,
         [
-            str(REF_IN / "R6.fa.gz"),
-            str(REF_IN / "TIGR4.fa.gz"),
-            str(REF_IN / "14412_3#82.contigs_velvet.fa.gz"),
+            str(genomes["R6"]),
+            str(genomes["TIGR4"]),
+            str(genomes["s82"]),
         ],
     )
     return Inverted.build(
@@ -70,32 +68,32 @@ def test_info(server, inv):
     assert info["has_labels"] and not info["has_metadata"]
 
 
-def test_query_matches_inmemory_api(server, inv):
-    body = (REF_IN / "R6.fa.gz").read_bytes()  # gzip: sniffed from magic
+def test_query_matches_inmemory_api(server, inv, genomes):
+    body = genomes["R6"].read_bytes()  # gzip: sniffed from magic
     status, res = _post(server + "/query?nouts=3&name=R6", body)
     assert status == 200
-    expect = inv.query_probs([("R6", [str(REF_IN / "R6.fa.gz")])], nouts=3)
+    expect = inv.query_probs([("R6", [str(genomes["R6"])])], nouts=3)
     assert res == json.loads(json.dumps(expect))  # identical through JSON
     assert res["names"][0] == "R6" and res["probs"][0] == 1.0
 
 
-def test_match_count_matches_inmemory_api(server, inv):
-    body = (REF_IN / "TIGR4.fa.gz").read_bytes()
+def test_match_count_matches_inmemory_api(server, inv, genomes):
+    body = genomes["TIGR4"].read_bytes()
     status, res = _post(server + "/match-count?name=T4", body)
     assert status == 200
     assert res["query"] == "T4"
     assert res["samples"] == list(inv.sample_names)
     queries, _ = inv.sketch_queries(
-        [("T4", [str(REF_IN / "TIGR4.fa.gz")])], 5, 20
+        [("T4", [str(genomes["TIGR4"])])], 5, 20
     )
     assert res["counts"] == [int(c) for c in inv.query_match_count(queries[0])]
     # the query IS an indexed sample: its own column is a full match
     assert res["counts"][1] == 100
 
 
-def test_plain_fasta_upload(server):
+def test_plain_fasta_upload(server, genomes):
     """Uncompressed payloads work too (format sniffing, not extension)."""
-    plain = gzip.decompress((REF_IN / "R6.fa.gz").read_bytes())
+    plain = gzip.decompress(genomes["R6"].read_bytes())
     status, res = _post(server + "/query?nouts=1", plain)
     assert status == 200 and res["probs"][0] == 1.0
 

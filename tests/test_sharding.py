@@ -148,7 +148,7 @@ def test_select_engine_uses_mesh_on_multidevice(eight_devices, monkeypatch):
 
     from sketchtpu import runtime
 
-    monkeypatch.setenv("SKETCHTPU_BACKEND", "tpu")
+    monkeypatch.setenv("SKETCHTPU_BACKEND", "device")
     ms = _fake_ms(n=19, nk=1, s64=2, kmers=(17,), seed=9)
     engine = runtime.select_engine(ms)
     assert engine is not None
@@ -167,7 +167,6 @@ def test_sharded_coreacc_engine_matches_device_engine(eight_devices, monkeypatch
     from sketchtpu.dist.coreacc_jax import DeviceCoreAccEngine
     from sketchtpu.shard.mesh import ShardedCoreAccEngine
 
-    monkeypatch.setenv("SKETCHTPU_COREACC_KERNEL", "xla")
     ms = _fake_ms(n=21, nk=3, s64=2, kmers=(15, 19, 23), seed=12)
     names = [f"g{i}" for i in range(21)]
     single = io.StringIO()
@@ -207,7 +206,6 @@ def test_sharded_knn_coreacc_matches_device(eight_devices, monkeypatch):
     from sketchtpu.dist.knn_jax import DeviceKnnEngine
     from sketchtpu.shard.mesh import ShardedKnnEngine
 
-    monkeypatch.setenv("SKETCHTPU_COREACC_KERNEL", "xla")
     ms = _fake_ms(n=48, nk=3, s64=2, kmers=(15, 19, 23), seed=21)
     queries = _fake_ms(n=10, nk=3, s64=2, kmers=(15, 19, 23), seed=22)
     single = DeviceKnnEngine(ms, row_tile=16, col_tile=16)
@@ -613,7 +611,7 @@ def test_select_inverted_engine_uses_mesh_on_multidevice(
     from sketchtpu.shard.mesh import ShardedInvertedEngine
     from sketchtpu.sketchcore.sketch import HashType
 
-    monkeypatch.setenv("SKETCHTPU_BACKEND", "tpu")
+    monkeypatch.setenv("SKETCHTPU_BACKEND", "device")
     rng = np.random.default_rng(5)
     inv = Inverted(
         sign_matrix=rng.integers(0, 99, (24, 16), dtype=np.uint16),
